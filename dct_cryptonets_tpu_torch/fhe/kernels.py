@@ -1,7 +1,7 @@
 """Hand-written Hopper kernels of the blind rotate's CMUX step.
 
-Counterpart of ``dct_cryptonets_tpu.fhe.pallas_kernels``.  Three kernels
-carry the CMUX step on the main path:
+Counterpart of ``dct_cryptonets_tpu.fhe.pallas_kernels``.  The fused
+engine's CMUX step runs three kernels:
 
 * :func:`rotate_decompose` (``csrc/rotate_decompose.cu``) — the front
   half: rotate, diff, gadget-decompose, byte-split;
@@ -9,6 +9,15 @@ carry the CMUX step on the main path:
   strip table of one CMUX step's bootstrapping-key bytes;
 * :func:`fused_external` (``csrc/fused_external.cu``) — the back half:
   the int8 tensor-core external product and its 64-bit accumulate.
+
+The s2d engine runs :func:`rotate_decompose` in its sample-major layout,
+two int8 GEMMs (``fhe/pbs.py``) and
+
+* :func:`combine_accumulate` (``csrc/combine_accumulate.cu``) — the
+  GEMMs' int32 byte-scale buckets recombined into the 64-bit accumulator.
+
+:func:`rotate_diff` (``csrc/rotate_diff.cu``), X^a * acc - acc, has no
+caller in either package.
 
 Beside each kernel is its plain PyTorch version (``*_plain``): the same
 function in the same layout.  A wrapper runs the plain version only for
@@ -36,10 +45,11 @@ I64 = torch.int64
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-SOURCES = ("rotate_decompose.cu", "bigd_strips.cu", "fused_external.cu")
+SOURCES = ("rotate_decompose.cu", "bigd_strips.cu", "fused_external.cu",
+           "combine_accumulate.cu", "rotate_diff.cu")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "cuda")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
 build_log = ""
@@ -66,7 +76,8 @@ def _source_hash() -> str:
 
 def build_kernels() -> float:
     """Compile (if needed) and load the kernel library; returns the seconds
-    spent building (0 when an up-to-date build was found)."""
+    spent building (0 when an up-to-date build was found).  Each source is
+    compiled by its own ``nvcc``, all started together, then linked."""
     global _lib, build_log
     if _lib is not None:
         return 0.0
@@ -77,14 +88,30 @@ def build_kernels() -> float:
     if not os.path.exists(so):
         os.makedirs(out_dir, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *[os.path.join(CSRC_DIR, s) for s in SOURCES]]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        build_log = res.stdout + res.stderr
+        nvcc = _nvcc()
+        objs = [os.path.join(out_dir, f"{s}.{os.getpid()}.o") for s in SOURCES]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, os.path.join(CSRC_DIR, s)]
+                for s, o in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        logs = [p.communicate()[0] for p in procs]
+        cmds.append([nvcc, "-shared", *NVCC_FLAGS[:2], "-o", tmp, *objs])
+        if all(p.returncode == 0 for p in procs):
+            res = subprocess.run(cmds[-1], capture_output=True, text=True)
+            logs.append(res.stdout + res.stderr)
+            rcs = [p.returncode for p in procs] + [res.returncode]
+        else:
+            rcs = [p.returncode for p in procs]
+        build_log = "".join(" ".join(c) + "\n" + log
+                            for c, log in zip(cmds, logs))
         with open(os.path.join(out_dir, "build.log"), "w") as fh:
-            fh.write(" ".join(cmd) + "\n" + build_log)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
+            fh.write(build_log)
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
+        if any(rcs):
+            raise RuntimeError(f"nvcc failed ({rcs}):\n{build_log}")
         os.replace(tmp, so)
         built = time.time() - t
     else:
@@ -94,11 +121,14 @@ def build_kernels() -> float:
                 build_log = fh.read()
     lib = ctypes.CDLL(so)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.dctc_rotate_decompose.argtypes = [vp, vp, vp, vp] + [ci] * 6 + [vp]
+    lib.dctc_rotate_decompose.argtypes = [vp, vp, vp, vp] + [ci] * 7 + [vp]
     lib.dctc_bigd_strips.argtypes = [vp, vp, ci, ci, vp]
     lib.dctc_fused_external.argtypes = [vp] * 5 + [ci] * 7 + [vp]
+    lib.dctc_combine_accumulate.argtypes = [vp] * 4 + [ci] * 6 + [vp]
+    lib.dctc_rotate_diff.argtypes = [vp] * 3 + [ci] * 3 + [vp]
     for fn in (lib.dctc_rotate_decompose, lib.dctc_bigd_strips,
-               lib.dctc_fused_external):
+               lib.dctc_fused_external, lib.dctc_combine_accumulate,
+               lib.dctc_rotate_diff):
         fn.restype = ci
     _lib = lib
     return built
@@ -123,14 +153,18 @@ def _launch(fn, *args):
         raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
 
 
+def _wrappers():
+    return (rotate_decompose, build_bigd_strips, fused_external,
+            combine_accumulate, rotate_diff)
+
+
 def reset_launch_counts():
-    for w in (rotate_decompose, build_bigd_strips, fused_external):
+    for w in _wrappers():
         w.launches = 0
 
 
 def launch_counts() -> dict:
-    return {w.__name__: w.launches
-            for w in (rotate_decompose, build_bigd_strips, fused_external)}
+    return {w.__name__: w.launches for w in _wrappers()}
 
 
 # ---------------------------------------------------------------------------
@@ -138,10 +172,16 @@ def launch_counts() -> dict:
 
 
 def rotate_decompose_plain(acc: torch.Tensor, amounts: torch.Tensor,
-                           blog: int, levels: int):
-    """acc (J, M, N) int64 plane-major; amounts (M,) in [0, 2N) ->
+                           blog: int, levels: int, plane_major: bool = True):
+    """Plane-major: acc (J, M, N) int64, amounts (M,) in [0, 2N) ->
     (out0, out1): (J*levels, M, N) int8 low/high digit bytes, row
-    j*levels + lev, digits most significant first."""
+    j*levels + lev, digits most significant first.  Sample-major
+    (``plane_major=False``, the s2d engine's layout): acc (M, J, N) ->
+    (M, J*levels, N)."""
+    if not plane_major:
+        out = rotate_decompose_plain(acc.transpose(0, 1), amounts, blog,
+                                     levels)
+        return tuple(o.transpose(0, 1).contiguous() for o in out)
     J, M, N = acc.shape
     a = amounts.to(device=acc.device, dtype=I64)
     r = a & (N - 1)
@@ -160,12 +200,14 @@ def rotate_decompose_plain(acc: torch.Tensor, amounts: torch.Tensor,
 
 
 def rotate_decompose(acc: torch.Tensor, amounts: torch.Tensor, blog: int,
-                     levels: int):
+                     levels: int, plane_major: bool = True):
     """Kernel wrapper of :func:`rotate_decompose_plain`."""
     if acc.device.type == "cpu":
-        return rotate_decompose_plain(acc, amounts, blog, levels)
+        return rotate_decompose_plain(acc, amounts, blog, levels, plane_major)
     _check_cuda("acc", acc, I64, 3, 8)
     J, M, N = acc.shape
+    if not plane_major:
+        M, J = J, M
     if N & (N - 1) or not 0 < blog * levels <= 32 or blog > 15:
         raise ValueError(f"unsupported N={N}, blog={blog}, levels={levels}")
     amounts = amounts.to(torch.int32)
@@ -173,11 +215,12 @@ def rotate_decompose(acc: torch.Tensor, amounts: torch.Tensor, blog: int,
     if amounts.shape[0] != M or amounts.device != acc.device:
         raise ValueError("amounts must be (M,) on the accumulator's device")
     build_kernels()
-    out0 = torch.empty((J * levels, M, N), dtype=I8, device=acc.device)
+    shape = (J * levels, M, N) if plane_major else (M, J * levels, N)
+    out0 = torch.empty(shape, dtype=I8, device=acc.device)
     out1 = torch.empty_like(out0)
     _launch(_lib.dctc_rotate_decompose, acc.data_ptr(), amounts.data_ptr(),
             out0.data_ptr(), out1.data_ptr(), J, M, N, N.bit_length() - 1,
-            blog, levels)
+            blog, levels, int(plane_major))
     rotate_decompose.launches += 1
     return out0, out1
 
@@ -294,6 +337,84 @@ def fused_external(dB0: torch.Tensor, dB1: torch.Tensor, bigd: torch.Tensor,
             bigd.data_ptr(), acc.data_ptr(), out.data_ptr(), J, M, N, rows,
             L, drop, cross)
     fused_external.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K4: recombine the s2d external product's byte buckets (s2d back half)
+
+
+def combine_accumulate_plain(o0: torch.Tensor, o1: torch.Tensor,
+                             acc: torch.Tensor, drop: int,
+                             cross: int = 0) -> torch.Tensor:
+    """acc + sum_s bucket_s * 2^(8s) (mod 2^64).
+
+    o0/o1: (M, J*L, N) int32 external products of the low/high digit
+    bytes, channel j*L + vi for key limb vi + drop; acc: (M, J, N) int64.
+    bucket_s sums, in int32, the terms of the (u, vi) pairs of
+    :func:`bucket_pairs`.  Returns the updated (M, J, N)."""
+    M, J, N = acc.shape
+    L = o0.shape[1] // J
+    o = (o0.view(M, J, L, N), o1.view(M, J, L, N))
+    out = acc.clone()
+    for s, pairs in sorted(bucket_pairs(L, drop, cross).items()):
+        bucket = sum(o[u][:, :, vi] for u, vi in pairs)
+        out += bucket.to(I64) << (8 * s)
+    return out
+
+
+def combine_accumulate(o0: torch.Tensor, o1: torch.Tensor, acc: torch.Tensor,
+                       drop: int, cross: int = 0) -> torch.Tensor:
+    """Kernel wrapper of :func:`combine_accumulate_plain`."""
+    if acc.device.type == "cpu":
+        return combine_accumulate_plain(o0, o1, acc, drop, cross)
+    _check_cuda("acc", acc, I64, 3, 8)
+    M, J, N = acc.shape
+    L = o0.shape[1] // J
+    for name, t in (("o0", o0), ("o1", o1)):
+        _check_cuda(name, t, torch.int32, 3, 4)
+        if tuple(t.shape) != (M, J * L, N):
+            raise ValueError(f"{name}: expected {(M, J * L, N)}, "
+                             f"got {tuple(t.shape)}")
+    if N & (N - 1) or not 0 <= drop < 8 or cross < 0:
+        raise ValueError(f"unsupported N={N}, drop={drop}, cross={cross}")
+    build_kernels()
+    out = torch.empty_like(acc)
+    _launch(_lib.dctc_combine_accumulate, o0.data_ptr(), o1.data_ptr(),
+            acc.data_ptr(), out.data_ptr(), M, J, N.bit_length() - 1, L,
+            drop, cross)
+    combine_accumulate.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K5: negacyclic rotate-and-diff (no caller in either package)
+
+
+def rotate_diff_plain(acc: torch.Tensor, amounts: torch.Tensor) -> torch.Tensor:
+    """X^a * acc - acc for acc (M, J, N) int64 and amounts (M,) in
+    [0, 2N)."""
+    from .pbs import negacyclic_rotate   # pbs imports this module
+    return negacyclic_rotate(acc, amounts) - acc
+
+
+def rotate_diff(acc: torch.Tensor, amounts: torch.Tensor) -> torch.Tensor:
+    """Kernel wrapper of :func:`rotate_diff_plain`."""
+    if acc.device.type == "cpu":
+        return rotate_diff_plain(acc, amounts)
+    _check_cuda("acc", acc, I64, 3, 8)
+    M, J, N = acc.shape
+    if N & (N - 1):
+        raise ValueError(f"unsupported N={N}")
+    amounts = amounts.to(torch.int32)
+    _check_cuda("amounts", amounts, torch.int32, 1, 4)
+    if amounts.shape[0] != M or amounts.device != acc.device:
+        raise ValueError("amounts must be (M,) on the accumulator's device")
+    build_kernels()
+    out = torch.empty_like(acc)
+    _launch(_lib.dctc_rotate_diff, acc.data_ptr(), amounts.data_ptr(),
+            out.data_ptr(), M, J, N.bit_length() - 1)
+    rotate_diff.launches += 1
     return out
 
 

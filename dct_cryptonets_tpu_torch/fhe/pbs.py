@@ -2,17 +2,26 @@
 extract, programmable bootstrapping and exact-rounding bit clearing.
 
 Counterpart of ``dct_cryptonets_tpu.fhe.pbs``.  Ciphertexts are ``int64``
-tensors (``fhe.torus``).  The blind rotate's CMUX step is the TPU package's
-fused engine, step for step: the Toeplitz strips of the step's key bytes
-(:func:`~.kernels.build_bigd_strips`), the front half
-(:func:`~.kernels.rotate_decompose`) and the int8 external product with
-its 64-bit accumulate (:func:`~.kernels.fused_external`).
+tensors (``fhe.torus``).  The blind rotate's CMUX step runs one of two of
+the TPU package's engines, step for step:
 
-``engine`` picks who computes those three stages: ``"kernel"`` launches
-the hand-written CUDA kernels (the default for CUDA tensors; it raises on
-the CPU), ``"plain"`` runs their plain PyTorch versions (the default for
-CPU tensors, and the oracle the kernels are held against on the card).
-Both give the same ciphertexts bit for bit.
+* the fused engine: the Toeplitz strips of the step's key bytes
+  (:func:`~.kernels.build_bigd_strips`), the front half
+  (:func:`~.kernels.rotate_decompose`) and the int8 external product with
+  its 64-bit accumulate (:func:`~.kernels.fused_external`), on a
+  plane-major (k+1, M, N) accumulator;
+* the s2d engine: the front half in its sample-major layout, the external
+  product as one int8 GEMM per digit byte against the step's Toeplitz
+  operand (:func:`expand_bsk_kernel_s2d`, :func:`conv_external_s2d`) and
+  the 64-bit recombine (:func:`~.kernels.combine_accumulate`), on a
+  sample-major (M, k+1, N) accumulator.
+
+``engine`` picks the engine and who computes its kernels: ``"kernel"`` and
+``"s2d"`` launch the hand-written CUDA kernels (``"kernel"`` is the
+default for CUDA tensors; both raise on the CPU), ``"plain"`` and
+``"s2d_plain"`` run their plain PyTorch versions (``"plain"`` is the
+default for CPU tensors; they are the oracles the kernels are held
+against on the card).  All four give the same ciphertexts bit for bit.
 """
 from typing import NamedTuple
 
@@ -162,22 +171,93 @@ def build_bigd(bsk_bytes_i: torch.Tensor, k: int, levels: int, N: int,
         _bigd_rows(bsk_bytes_i, k, levels, N, drop_limbs))
 
 
+def expand_bsk_kernel_s2d(bsk_bytes_i: torch.Tensor, k: int, levels: int,
+                          N: int, drop_limbs: int) -> torch.Tensor:
+    """GGSW byte limbs -> the s2d external product's int8 operand.
+
+    bsk_bytes_i: (rows, k+1, 2N, 8) doubled negacyclic byte limbs.
+    Returns (rows*N, (k+1)*L*N) int8, L = 8 - drop_limbs, the stacked
+    negacyclic Toeplitz blocks with columns ordered (j, vi, c):
+
+        B[r*N + t, (j*L + vi)*N + c] = b~[r, j, (c - t) mod 2N, drop + vi]
+
+    The TPU package builds a stride-16 space-to-depth conv kernel here,
+    whose only purpose is to fill the MXU's 128 lanes; the GPU's GEMM
+    wants the Toeplitz matrix itself, so the same products come out of
+    one int8 matrix product (:func:`conv_external_s2d`) in the conv's
+    output layout.  B is column-major (the transpose of a contiguous
+    matrix), the layout the card's int8 GEMM runs fastest.  It is 268 MB
+    per step on an N=2048, k=1 lattice, so it is built per step.
+
+    Built as one copy: with Rp[j, vi, r, q] = b~[r, j, (N - q) mod 2N,
+    drop + vi], row c of block (j, vi, r) of B^T is the window
+    Rp[..., N - c : 2N - c], so a strided view over Rp walks the rows
+    in reverse and one flip writes them out.
+    """
+    rows = (k + 1) * levels
+    L = 8 - drop_limbs
+    q = (N - torch.arange(2 * N, device=bsk_bytes_i.device)) % (2 * N)
+    rp = bsk_bytes_i[:, :, q, drop_limbs:].permute(1, 3, 0, 2).contiguous()
+    hankel = rp.as_strided((k + 1, L, N, rows, N),
+                           (L * rows * 2 * N, rows * 2 * N, 1, 2 * N, 1), 1)
+    return hankel.flip(2).reshape((k + 1) * L * N, rows * N).t()
+
+
+def conv_external_s2d(dB_u: torch.Tensor, kern: torch.Tensor, k: int, N: int,
+                      drop_limbs: int) -> torch.Tensor:
+    """One digit-byte plane through the s2d external product.
+
+    dB_u: (M, rows, N) int8; kern from :func:`expand_bsk_kernel_s2d`.
+    Returns (M, (k+1)*L, N) int32, channel j*L + vi: the TPU package's
+    conv output layout."""
+    M = dB_u.shape[0]
+    return int8_matmul(dB_u.reshape(M, -1), kern).reshape(M, -1, N)
+
+
+def cmux_accumulate_s2d(acc: torch.Tensor, a_i: torch.Tensor,
+                        bsk_kern_i: torch.Tensor, params_tuple,
+                        drop_limbs: int, cross: int = 0,
+                        engine: str | None = None) -> torch.Tensor:
+    """One s2d CMUX step (the TPU package's ``cmux_accumulate_pallas``):
+    acc + GGSW_i x (X^{a_i} acc - acc) on a sample-major (M, k+1, N)
+    accumulator.  bsk_kern_i must come from :func:`expand_bsk_kernel_s2d`;
+    engine is ``"s2d"`` or ``"s2d_plain"`` (default: by device)."""
+    blog, levels, k, N = params_tuple
+    if engine is None:
+        engine = "s2d" if acc.device.type == "cuda" else "s2d_plain"
+    if engine not in _S2D:
+        raise ValueError(f"engine {engine!r} is not an s2d engine")
+    front, combine = _engine_fns(engine, acc.device)[1]
+    dB0, dB1 = front(acc, a_i, blog, levels, plane_major=False)
+    o0 = conv_external_s2d(dB0, bsk_kern_i, k, N, drop_limbs)
+    o1 = conv_external_s2d(dB1, bsk_kern_i, k, N, drop_limbs)
+    return combine(o0, o1, acc, drop_limbs, cross)
+
+
 _ENGINES = {
+    # fused engine: (strips, front half, back half)
     "kernel": (K.build_bigd_strips, K.rotate_decompose, K.fused_external),
     "plain": (K.build_bigd_strips_plain, K.rotate_decompose_plain,
               K.fused_external_plain),
+    # s2d engine: (front half, recombine)
+    "s2d": (K.rotate_decompose, K.combine_accumulate),
+    "s2d_plain": (K.rotate_decompose_plain, K.combine_accumulate_plain),
 }
+_S2D = ("s2d", "s2d_plain")
+_PLAIN_OF = {"kernel": "plain", "s2d": "s2d_plain"}   # CUDA-only engines
 
 
 def _engine_fns(engine: str | None, device: torch.device):
+    """-> (engine name, its functions)."""
     if engine is None:
         engine = "kernel" if device.type == "cuda" else "plain"
     if engine not in _ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
-    if engine == "kernel" and device.type != "cuda":
-        raise ValueError("engine='kernel' needs CUDA tensors "
-                         f"(got {device}); use engine='plain' on the CPU")
-    return _ENGINES[engine]
+    if engine in _PLAIN_OF and device.type != "cuda":
+        raise ValueError(f"engine={engine!r} needs CUDA tensors (got "
+                         f"{device}); use engine={_PLAIN_OF[engine]!r} on "
+                         "the CPU")
+    return engine, _ENGINES[engine]
 
 
 # ---------------------------------------------------------------------------
@@ -199,19 +279,33 @@ def blind_rotate(test_poly: torch.Tensor, ct_a: torch.Tensor,
     test_poly: (M, N) int64 per-sample lookup polynomials;
     ct_a: (M, n) mod-switched mask; ct_b: (M,) mod-switched body.
     cross: skip external-product byte pairs with digit byte + key limb
-    index < cross.  Returns GLWE accumulators (M, k+1, N) int64.
+    index < cross.  engine: see the module docstring.  Returns GLWE
+    accumulators (M, k+1, N) int64.
     """
     k, N, n = params.glwe_dim, params.poly_size, params.lwe_dim
     levels, blog = params.pbs_levels, params.pbs_base_log
     if _digit_bytes_count(blog) != 2:
         raise ValueError("the CMUX kernels take 2-byte gadget digits "
                          f"(pbs_base_log={blog})")
-    strips_fn, front_fn, back_fn = _engine_fns(engine, test_poly.device)
+    engine, fns = _engine_fns(engine, test_poly.device)
     M = test_poly.shape[0]
-    # acc init, plane-major (k+1, M, N): mask = 0, body = X^{-b} * test
-    acc = T.zeros((k + 1, M, N), test_poly.device)
-    acc[k] = negacyclic_rotate(test_poly, (2 * N - ct_b) % (2 * N))
+    body = negacyclic_rotate(test_poly, (2 * N - ct_b) % (2 * N))
     a_cols = ct_a.t().to(torch.int32).contiguous()   # (n, M)
+    if engine in _S2D:
+        # acc init, sample-major (M, k+1, N): mask = 0, body = X^{-b} * test
+        acc = T.zeros((M, k + 1, N), test_poly.device)
+        acc[:, k] = body
+        pt = (blog, levels, k, N)
+        for i in range(n):
+            kern = expand_bsk_kernel_s2d(bsk_bytes[i], k, levels, N,
+                                         drop_limbs)
+            acc = cmux_accumulate_s2d(acc, a_cols[i], kern, pt, drop_limbs,
+                                      cross, engine)
+        return acc
+    strips_fn, front_fn, back_fn = fns
+    # acc init, plane-major (k+1, M, N)
+    acc = T.zeros((k + 1, M, N), test_poly.device)
+    acc[k] = body
     for i in range(n):
         strips = strips_fn(_bigd_rows(bsk_bytes[i], k, levels, N, drop_limbs))
         dB0, dB1 = front_fn(acc, a_cols[i], blog, levels)

@@ -1,6 +1,8 @@
-"""The CUDA kernels (K1 rotate_decompose, K2 build_bigd_strips, K3
-fused_external) against their plain PyTorch versions on the card, bit for
-bit.  Every test here needs an NVIDIA GPU and skips on the CPU.
+"""The CUDA kernels (K1 rotate_decompose in both layouts, K2
+build_bigd_strips, K3 fused_external, K4 combine_accumulate, K5
+rotate_diff) against their plain PyTorch versions on the card, and the
+engines against each other, bit for bit.  Every test here needs an NVIDIA
+GPU and skips on the CPU.
 
 This file imports no JAX, so it also runs on a machine without it:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -55,6 +57,19 @@ def test_cmux_kernels_match_plain(dev, k, N, drop, cross, M):
     assert torch.equal(K.fused_external(dB0, dB1, strips, acc, drop, cross),
                        K.fused_external_plain(dB0, dB1, strips, acc, drop,
                                               cross))
+    # the s2d engine's kernels on a sample-major (M, J, N) accumulator
+    sm = acc.transpose(0, 1).contiguous()
+    got = K.rotate_decompose(sm, amt, 15, 2, plane_major=False)
+    want = K.rotate_decompose_plain(sm, amt, 15, 2, plane_major=False)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(K.rotate_diff(sm, amt), K.rotate_diff_plain(sm, amt))
+    g = torch.Generator(device=dev).manual_seed(M)
+    o0, o1 = (torch.randint(-2 ** 31, 2 ** 31 - 1, (M, (k + 1) * (8 - drop), N),
+                            generator=g, device=dev, dtype=torch.int32)
+              for _ in range(2))
+    assert torch.equal(K.combine_accumulate(o0, o1, sm, drop, cross),
+                       K.combine_accumulate_plain(o0, o1, sm, drop, cross))
 
 
 @pytest.mark.parametrize("par", [TEST_PARAMS, TEST_PARAMS_K2],
@@ -73,13 +88,38 @@ def test_bootstrap_kernel_engine_equals_plain(dev, par):
     got = P.bootstrap(ct, tables, dsk, par, 60)
     n = par.lwe_dim
     assert K.launch_counts() == {"rotate_decompose": n,
-                                 "build_bigd_strips": n, "fused_external": n}
+                                 "build_bigd_strips": n, "fused_external": n,
+                                 "combine_accumulate": 0, "rotate_diff": 0}
     want = P.bootstrap(ct, tables, dsk, par, 60, engine="plain")
     assert torch.equal(got, want)
     phase = KEYS.decrypt_lwe(ck, T.to_u64(got), key=ck.big_lwe_key)
     dec = np.round(phase.astype(np.int64) / 2.0 ** 60).astype(np.int64)
     np.testing.assert_array_equal(dec, tables.cpu().numpy()[np.arange(40),
                                                             msgs])
+
+
+@pytest.mark.parametrize("par", [TEST_PARAMS, TEST_PARAMS_K2],
+                         ids=["k1", "k2"])
+@pytest.mark.parametrize("drop,cross", [(0, 0), (2, 1)])
+def test_bootstrap_s2d_engine_equals_kernel(dev, par, drop, cross):
+    ck = KEYS.keygen(par, seed=3)
+    dsk = P.preprocess_server_keys(KEYS.make_server_keys(ck, seed=4), dev)
+    rng = np.random.default_rng(6 + drop)
+    msgs = rng.integers(0, 8, 40)
+    ct = T.from_u64(KEYS.encrypt_lwe(
+        ck, msgs.astype(np.uint64) << np.uint64(60), rng,
+        key=ck.big_lwe_key, noise_log2=par.glwe_noise_log2), dev)
+    tables = torch.as_tensor(rng.integers(-4, 4, (40, 8)), dtype=torch.int32,
+                             device=dev)
+    K.reset_launch_counts()
+    got = P.bootstrap(ct, tables, dsk, par, 60, drop, cross, engine="s2d")
+    n = par.lwe_dim
+    assert K.launch_counts() == {"rotate_decompose": n,
+                                 "build_bigd_strips": 0, "fused_external": 0,
+                                 "combine_accumulate": n, "rotate_diff": 0}
+    for engine in ("kernel", "s2d_plain"):
+        assert torch.equal(got, P.bootstrap(ct, tables, dsk, par, 60, drop,
+                                            cross, engine=engine))
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -94,3 +134,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         K.fused_external(dB0, dB1, strips, acc, 2, 0)   # strips of drop 0
     with pytest.raises(ValueError, match="CUDA"):
         K.fused_external(dB0, dB1, strips.cpu(), acc, 0, 0)
+    o = torch.zeros((16, 2 * 8, 256), dtype=torch.int32, device=dev)
+    K.combine_accumulate(o, o, acc.transpose(0, 1).contiguous(), 0)
+    with pytest.raises(ValueError, match="o0"):
+        K.combine_accumulate(o, o, acc, 0)          # plane-major acc

@@ -72,8 +72,8 @@ def test_batches_match_jax(shuffle, drop):
 
 
 def test_port_never_imports_jax():
-    """Every port module imports, and a CPU bootstrap runs, without JAX
-    entering ``sys.modules``."""
+    """Every port module imports, and a CPU bootstrap runs on both
+    engines, without JAX entering ``sys.modules``."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import numpy as np, torch
@@ -92,10 +92,12 @@ def test_port_never_imports_jax():
                               np.random.default_rng(0), key=ck.big_lwe_key,
                               noise_log2=par.glwe_noise_log2)
         tables = torch.arange(8, dtype=torch.int32).repeat(4, 1)
-        out = P.bootstrap(T.from_u64(ct), tables, dsk, par, 58)
-        phase = KEYS.decrypt_lwe(ck, T.to_u64(out), key=ck.big_lwe_key)
-        dec = np.round(phase.astype(np.int64) / 2.0 ** 58).astype(int)
-        assert (dec == msgs).all(), dec
+        for engine in ("plain", "s2d_plain"):
+            out = P.bootstrap(T.from_u64(ct), tables, dsk, par, 58,
+                              engine=engine)
+            phase = KEYS.decrypt_lwe(ck, T.to_u64(out), key=ck.big_lwe_key)
+            dec = np.round(phase.astype(np.int64) / 2.0 ** 58).astype(int)
+            assert (dec == msgs).all(), (engine, dec)
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "optax",
                                                "flax"))

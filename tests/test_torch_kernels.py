@@ -106,10 +106,14 @@ def test_cmux_step_matches_jax_conv_engine(k, drop, cross, M):
 def test_wrappers_count_no_launch_on_cpu():
     K.reset_launch_counts()
     acc, amounts, bsk_i, dB = make_inputs(50, 1, 8, 0)
-    K.rotate_decompose(T.from_u64(acc), torch.from_numpy(amounts), BLOG,
-                       LEVELS)
+    tacc = T.from_u64(acc)
+    K.rotate_decompose(tacc, torch.from_numpy(amounts), BLOG, LEVELS)
+    o = torch.zeros((8, 16, N), dtype=torch.int32)
+    K.combine_accumulate(o, o, tacc.transpose(0, 1), 0)
+    K.rotate_diff(tacc.transpose(0, 1), torch.from_numpy(amounts))
     assert K.launch_counts() == {"rotate_decompose": 0,
-                                 "build_bigd_strips": 0, "fused_external": 0}
+                                 "build_bigd_strips": 0, "fused_external": 0,
+                                 "combine_accumulate": 0, "rotate_diff": 0}
 
 
 def test_kernel_engine_refuses_cpu_tensors():
