@@ -10,7 +10,10 @@ Phases, each printed with its elapsed seconds; any failure exits nonzero:
      nvcc per source, all started together;
   2. each kernel against its plain PyTorch version, bit for bit, at the
      main (preset 6, N=2048) and extraction (k2n512f, N=512) lattices (K1
-     in both layouts);
+     and K2 in both layouts, K3 at every (drop, cross) and ragged M), each
+     timed beside its bound (bytes over 3.35 TB/s or int8 operations over
+     1,979 TOPS) and, for K3, beside the library call that computes its
+     products (the s2d engine's two int8 GEMMs at the same M);
   3. the flagship ResNet20qat checkpoint compiled with calibration through
      the port's eval flow, keygen for preset 6 and k2n512f, then one
      production PBS batch under those keys: bootstrap and clear_low_bits on
@@ -59,6 +62,31 @@ KERNELS = {
 FUSED_KERNELS = ("rotate_decompose", "build_bigd_strips", "fused_external")
 # (J, N, rows, production batch) of the main and extraction lattices
 LATTICES = {"main": (2, 2048, 4, 2048), "aux": (3, 512, 6, 4096)}
+# the H100 SXM's peaks (NVIDIA's data sheet): HBM bytes/s, dense int8 ops/s
+HBM_BPS, INT8_OPS = 3.35e12, 1979e12
+
+
+def bound(name, J, N, rows, M):
+    """(bound_ms, bound_by) of one call at phase 2's timed shapes (drop 0):
+    each input read once, each output written once, over the HBM rate;
+    for K3 also its int8 operations over the tensor-core peak."""
+    L, lev = 8, rows // J
+    ops = 0
+    if name.startswith("rotate_decompose"):
+        nbytes = 8 * J * M * N + 4 * M + 2 * J * lev * M * N
+    elif name == "build_bigd_strips":
+        nbytes = J * L * rows * (2 * N + 128 * (2 * N - 128))
+    elif name == "fused_external":
+        pairs = sum(len(v) for v in K.bucket_pairs(L, 0, 0).values())
+        ops = 2 * J * pairs * rows * M * N * N
+        nbytes = (2 * rows * M * N + J * L * rows * 128 * (2 * N - 128)
+                  + 16 * J * M * N)
+    elif name == "combine_accumulate":
+        nbytes = 2 * 4 * M * J * L * N + 16 * M * J * N
+    elif name == "rotate_diff":
+        nbytes = 16 * M * J * N + 4 * M
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / INT8_OPS * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
 class Phase:
@@ -103,7 +131,8 @@ def rand_i64(gen, shape, dev):
 
 
 def phase_kernels(dev, record):
-    """Every kernel against its plain version at production shapes."""
+    """Every kernel against its plain version at production shapes.
+    record[name][lattice] gets (ms, plain_ms, library_ms or None)."""
     gen = torch.Generator(device=dev).manual_seed(1234)
     errs = {name: 0 for name in KERNELS}
 
@@ -136,7 +165,7 @@ def phase_kernels(dev, record):
             if M == Mprod:
                 record["rotate_decompose"][lat] = (
                     cuda_ms(lambda: K.rotate_decompose(*args)),
-                    cuda_ms(lambda: K.rotate_decompose_plain(*args)))
+                    cuda_ms(lambda: K.rotate_decompose_plain(*args)), None)
             # the s2d engine's layout: a sample-major (M, J, N) accumulator
             sm = acc.transpose(0, 1).contiguous()
             check("rotate_decompose",
@@ -150,10 +179,10 @@ def phase_kernels(dev, record):
                     cuda_ms(lambda: K.rotate_decompose(
                         sm, amt, 15, 2, plane_major=False)),
                     cuda_ms(lambda: K.rotate_decompose_plain(
-                        sm, amt, 15, 2, plane_major=False)))
+                        sm, amt, 15, 2, plane_major=False)), None)
                 record["rotate_diff"][lat] = (
                     cuda_ms(lambda: K.rotate_diff(sm, amt)),
-                    cuda_ms(lambda: K.rotate_diff_plain(sm, amt)))
+                    cuda_ms(lambda: K.rotate_diff_plain(sm, amt)), None)
         # K4 on full-range int32 terms, so the int32 bucket sums wrap
         for drop, cross in ((0, 0), (2, 0), (0, 1), (2, 1)):
             for M in (13, 256) + ((Mprod,) if drop == cross == 0 else ()):
@@ -169,19 +198,23 @@ def phase_kernels(dev, record):
                 if M == Mprod:
                     record["combine_accumulate"][lat] = (
                         cuda_ms(lambda: K.combine_accumulate(*args)),
-                        cuda_ms(lambda: K.combine_accumulate_plain(*args)))
+                        cuda_ms(lambda: K.combine_accumulate_plain(*args)),
+                        None)
             del o0, o1
         for drop in (0, 2):
             C = (8 - drop) * rows
             dbl = torch.randint(-128, 128, (J, C, 2 * N), generator=gen,
                                 device=dev, dtype=torch.int8)
-            check("build_bigd_strips", K.build_bigd_strips(dbl),
-                  K.build_bigd_strips_plain(dbl), f"{lat} drop={drop}")
+            for km in (False, True):
+                check("build_bigd_strips", K.build_bigd_strips(dbl, km),
+                      K.build_bigd_strips_plain(dbl, km),
+                      f"{lat} drop={drop} k_major={km}")
             if drop == 0:
                 record["build_bigd_strips"][lat] = (
-                    cuda_ms(lambda: K.build_bigd_strips(dbl)),
-                    cuda_ms(lambda: K.build_bigd_strips_plain(dbl)))
-            strips = K.build_bigd_strips(dbl)
+                    cuda_ms(lambda: K.build_bigd_strips(dbl, True)),
+                    cuda_ms(lambda: K.build_bigd_strips_plain(dbl, True)),
+                    None)
+            strips = K.build_bigd_strips(dbl, k_major=True)
             for cross in (0, 1):
                 for M in (13, 256) + ((Mprod,) if drop == cross == 0
                                       else ()):
@@ -198,15 +231,39 @@ def phase_kernels(dev, record):
                         ms = cuda_ms(lambda: K.fused_external(*args))
                         plain = cuda_ms(lambda: K.fused_external_plain(*args),
                                         reps=2)
-                        record["fused_external"][lat] = (ms, plain)
+                        lib = library_ms(J, N, rows, M)
+                        record["fused_external"][lat] = (ms, plain, lib)
                         print(f"  fused_external {lat} M={M}: {ms:.3f} ms "
                               f"kernel ({tops(M, ms):.1f} TOPS), "
-                              f"{plain:.3f} ms plain", flush=True)
+                              f"{plain:.3f} ms plain, {lib:.3f} ms library "
+                              "(two int8 GEMMs)", flush=True)
     for name, per in record.items():
-        for lat, (ms, plain) in per.items():
+        for lat, (ms, plain, lib) in per.items():
+            b, by = bound(name, *LATTICES[lat])
             print(f"  time {name} {lat}: kernel {ms:.3f} ms, plain "
-                  f"{plain:.3f} ms", flush=True)
+                  f"{plain:.3f} ms, library "
+                  + ("-" if lib is None else f"{lib:.3f} ms")
+                  + f", bound {b:.4f} ms ({by}), {100 * b / ms:.1f} % of "
+                  "bound", flush=True)
     return errs
+
+
+def library_ms(J, N, rows, M):
+    """The same products as K3 at drop 0 from the library: the s2d
+    engine's two int8 GEMMs (``torch._int_mm``, 16/15 of K3's
+    multiply-adds: one pair more, which wraps out of 2^64) on its operand
+    of random key bytes."""
+    from dct_cryptonets_tpu_torch.fhe import pbs as P
+    from dct_cryptonets_tpu_torch.fhe.intmm import int8_matmul
+
+    gen = torch.Generator(device="cuda").manual_seed(M)
+    bsk = torch.randint(-128, 128, (rows, J, 2 * N, 8), generator=gen,
+                        device="cuda", dtype=torch.int8)
+    kern = P.expand_bsk_kernel_s2d(bsk, J - 1, rows // J, N, 0)
+    d0, d1 = (torch.randint(-128, 128, (M, rows * N), generator=gen,
+                            device="cuda", dtype=torch.int8)
+              for _ in range(2))
+    return cuda_ms(lambda: (int8_matmul(d0, kern), int8_matmul(d1, kern)))
 
 
 CKPT = os.path.join(ROOT, "checkpoints", "digits_flagship", "best.tar")
@@ -351,7 +408,8 @@ def cmux_step_ms(par, bsk_bytes, M, dev):
     bsk_i, pt = bsk_bytes[0], (blog, levels, k, N)
 
     def fused():
-        strips = K.build_bigd_strips(P._bigd_rows(bsk_i, k, levels, N, 0))
+        strips = K.build_bigd_strips(P._bigd_rows(bsk_i, k, levels, N, 0),
+                                     k_major=True)
         d0, d1 = K.rotate_decompose(acc, amt, blog, levels)
         return K.fused_external(d0, d1, strips, acc, 0)
 
@@ -535,11 +593,17 @@ def main():
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():
-        ms, plain = record[name].get("main", (None, None))
+        ms, plain, lib = record[name]["main"]
+        b, by = bound(name, *LATTICES["main"])
+        ms_a, plain_a, lib_a = record[name]["aux"]
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": replaces,
                  "launches": launches[name] + s2d_launches[name],
-                 "max_abs_err": errs[name], "ms": ms, "plain_ms": plain}
+                 "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
+                 "bound_ms": b, "bound_by": by, "library_ms": lib,
+                 "aux": {"ms": ms_a, "plain_ms": plain_a,
+                         "bound_ms": bound(name, *LATTICES["aux"])[0],
+                         "library_ms": lib_a}}
         if name == "rotate_diff":
             entry["note"] = ("no caller in either package: launched only "
                              "against its plain version in phase 2")

@@ -8,7 +8,10 @@
 //
 // from the doubled negacyclic BSK byte rows dbl (G, 2N) int8.  Every
 // (N, N) negacyclic Toeplitz tile the external product needs is a column
-// slice of one strip, so fused_external.cu reads B operands from it.
+// slice of one strip.  With k_major the kernel reads index (-i) mod 2N for
+// i: the same function on the reversed row, whose strips hold the Toeplitz
+// tiles transposed (contraction index along a row), the layout of
+// fused_external.cu's B operand.
 //
 // Bound on the card: memory (it writes 128*(2N-128) bytes per row, reads
 // 2N).  Design: one thread per 4 output bytes, the gather as index
@@ -20,7 +23,7 @@
 
 __global__ void bigd_strips_kernel(const signed char* __restrict__ dbl,
                                    signed char* __restrict__ out, int G,
-                                   int N) {
+                                   int N, int k_major) {
   int W = 2 * N - 128;
   int W4 = W >> 2;
   long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -33,19 +36,20 @@ __global__ void bigd_strips_kernel(const signed char* __restrict__ dbl,
   const unsigned char* row = (const unsigned char*)dbl + g * 2 * N;
   int base = x - tt + N + 128;
   int wrap = 2 * N - 1;
+  int sign = k_major ? -1 : 1;
   uint32_t packed = 0;
 #pragma unroll
   for (int q = 0; q < 4; ++q)
-    packed |= (uint32_t)row[(base + q) & wrap] << (8 * q);
+    packed |= (uint32_t)row[(sign * (base + q)) & wrap] << (8 * q);
   *(uint32_t*)(out + (g * 128 + tt) * W + x) = packed;
 }
 
 extern "C" int dctc_bigd_strips(const void* dbl, void* out, int G, int N,
-                                void* stream) {
+                                int k_major, void* stream) {
   long long total = (long long)G * 128 * ((2 * N - 128) / 4);
   int threads = 256;
   long long blocks = (total + threads - 1) / threads;
   bigd_strips_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const signed char*)dbl, (signed char*)out, G, N);
+      (const signed char*)dbl, (signed char*)out, G, N, k_major);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,6 @@
 """Static DCT channel-subset index tables and normalization statistics
-(counterpart of ``dct_cryptonets_tpu.data.tables``; it reads the same JSON
-files, which live in that package's ``data/tables`` directory).
+(counterpart of ``dct_cryptonets_tpu.data.tables``; it reads its own copy
+of that package's JSON files, in ``data/tables`` beside this module).
 
 Pure data extracted from the reference implementation (see
 ``tools/extract_reference_tables.py``):
@@ -29,9 +29,7 @@ from functools import lru_cache
 
 import numpy as np
 
-_TABLE_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "dct_cryptonets_tpu", "data", "tables")
+_TABLE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tables")
 
 
 @lru_cache(maxsize=None)

@@ -1,9 +1,9 @@
 """TFHE runtime, circuit simulator and compiler (PyTorch port).
 
 Client-side randomness, LWE encrypt/decrypt and the noise model are numpy
-code shared with the JAX package; they are re-exported here so that callers
-of the port need not name it."""
-from dct_cryptonets_tpu.fhe.keys import Csprng, decrypt_lwe, encrypt_lwe
-from dct_cryptonets_tpu.fhe.params import NoiseModel
+code, the port's own copies (``fhe.keys``, ``fhe.params``) of the JAX
+package's; they are re-exported here."""
+from .keys import Csprng, decrypt_lwe, encrypt_lwe
+from .params import NoiseModel
 
 __all__ = ["Csprng", "NoiseModel", "decrypt_lwe", "encrypt_lwe"]

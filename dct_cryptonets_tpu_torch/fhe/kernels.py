@@ -6,9 +6,11 @@ engine's CMUX step runs three kernels:
 * :func:`rotate_decompose` (``csrc/rotate_decompose.cu``) — the front
   half: rotate, diff, gadget-decompose, byte-split;
 * :func:`build_bigd_strips` (``csrc/bigd_strips.cu``) — the Toeplitz
-  strip table of one CMUX step's bootstrapping-key bytes;
+  strip table of one CMUX step's bootstrapping-key bytes, K-major
+  (``k_major=True``) for the external product;
 * :func:`fused_external` (``csrc/fused_external.cu``) — the back half:
-  the int8 tensor-core external product and its 64-bit accumulate.
+  the int8 tensor-core (``wgmma``) external product and its 64-bit
+  accumulate.
 
 The s2d engine runs :func:`rotate_decompose` in its sample-major layout,
 two int8 GEMMs (``fhe/pbs.py``) and
@@ -96,7 +98,8 @@ def build_kernels() -> float:
                                   stderr=subprocess.STDOUT, text=True)
                  for c in cmds]
         logs = [p.communicate()[0] for p in procs]
-        cmds.append([nvcc, "-shared", *NVCC_FLAGS[:2], "-o", tmp, *objs])
+        cmds.append([nvcc, "-shared", *NVCC_FLAGS[:2], "-o", tmp, *objs,
+                     "-ldl"])
         if all(p.returncode == 0 for p in procs):
             res = subprocess.run(cmds[-1], capture_output=True, text=True)
             logs.append(res.stdout + res.stderr)
@@ -122,7 +125,7 @@ def build_kernels() -> float:
     lib = ctypes.CDLL(so)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.dctc_rotate_decompose.argtypes = [vp, vp, vp, vp] + [ci] * 7 + [vp]
-    lib.dctc_bigd_strips.argtypes = [vp, vp, ci, ci, vp]
+    lib.dctc_bigd_strips.argtypes = [vp, vp, ci, ci, ci, vp]
     lib.dctc_fused_external.argtypes = [vp] * 5 + [ci] * 7 + [vp]
     lib.dctc_combine_accumulate.argtypes = [vp] * 4 + [ci] * 6 + [vp]
     lib.dctc_rotate_diff.argtypes = [vp] * 3 + [ci] * 3 + [vp]
@@ -235,19 +238,26 @@ def _strip_index(N: int, device) -> torch.Tensor:
     return (x - tt + N + 128) % (2 * N)                    # (128, 2N-128)
 
 
-def build_bigd_strips_plain(dbl: torch.Tensor) -> torch.Tensor:
+def build_bigd_strips_plain(dbl: torch.Tensor,
+                            k_major: bool = False) -> torch.Tensor:
     """dbl (J, C, 2N) int8 doubled negacyclic byte rows ->
     (J, C, 128, 2N-128) int8 strips, strip[g, tt, x] =
-    dbl[g, (x - tt + N + 128) mod 2N]."""
+    dbl[g, (x - tt + N + 128) mod 2N] (the TPU kernel's layout).
+
+    ``k_major``: the strips of the reversed rows dbl[g, (-i) mod 2N], which
+    hold each Toeplitz tile transposed, the contraction index along a row
+    (:func:`toeplitz_from_strip`); :func:`fused_external` takes these."""
     J, C, twoN = dbl.shape
     idx = _strip_index(twoN // 2, dbl.device)
+    if k_major:
+        idx = (-idx) % twoN
     return dbl[:, :, idx]
 
 
-def build_bigd_strips(dbl: torch.Tensor) -> torch.Tensor:
+def build_bigd_strips(dbl: torch.Tensor, k_major: bool = False) -> torch.Tensor:
     """Kernel wrapper of :func:`build_bigd_strips_plain`."""
     if dbl.device.type == "cpu":
-        return build_bigd_strips_plain(dbl)
+        return build_bigd_strips_plain(dbl, k_major)
     _check_cuda("dbl", dbl, I8, 3, 4)
     J, C, twoN = dbl.shape
     N = twoN // 2
@@ -255,7 +265,8 @@ def build_bigd_strips(dbl: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"unsupported N={N}")
     build_kernels()
     out = torch.empty((J, C, 128, twoN - 128), dtype=I8, device=dbl.device)
-    _launch(_lib.dctc_bigd_strips, dbl.data_ptr(), out.data_ptr(), J * C, N)
+    _launch(_lib.dctc_bigd_strips, dbl.data_ptr(), out.data_ptr(), J * C, N,
+            int(k_major))
     build_bigd_strips.launches += 1
     return out
 
@@ -278,11 +289,12 @@ def bucket_pairs(L: int, drop: int, cross: int) -> dict:
 
 
 def toeplitz_from_strip(strip: torch.Tensor) -> torch.Tensor:
-    """(128, 2N-128) strip -> (N, N) negacyclic Toeplitz matrix; rows
-    [128 t0, 128 (t0+1)) are strip[:, N - 128(t0+1) : 2N - 128(t0+1)]."""
+    """(128, 2N-128) K-major strip -> (N, N) negacyclic Toeplitz matrix
+    T[k, x] = dbl[(x - k) mod 2N]: columns [128 x0, 128 (x0+1)) are
+    strip[:, N - 128(x0+1) : 2N - 128(x0+1)] transposed."""
     N = (strip.shape[-1] + 128) // 2
-    return torch.cat([strip[:, N - 128 * (t0 + 1):2 * N - 128 * (t0 + 1)]
-                      for t0 in range(N // 128)], dim=0)
+    return torch.cat([strip[:, N - 128 * (x0 + 1):2 * N - 128 * (x0 + 1)]
+                      for x0 in range(N // 128)], dim=0).t()
 
 
 def fused_external_plain(dB0: torch.Tensor, dB1: torch.Tensor,
@@ -291,7 +303,8 @@ def fused_external_plain(dB0: torch.Tensor, dB1: torch.Tensor,
     """acc + external product.
 
     dB0/dB1: (rows, M, N) int8 digit-byte planes (:func:`rotate_decompose`);
-    bigd: (J, L*rows, 128, 2N-128) int8 strips, combo vi*rows + r;
+    bigd: (J, L*rows, 128, 2N-128) int8 K-major strips
+    (``build_bigd_strips(..., k_major=True)``), combo vi*rows + r;
     acc: (J, M, N) int64 plane-major.  Returns the updated (J, M, N).
     """
     J, M, N = acc.shape
@@ -329,7 +342,7 @@ def fused_external(dB0: torch.Tensor, dB1: torch.Tensor, bigd: torch.Tensor,
     if tuple(bigd.shape) != (J, L * rows, 128, 2 * N - 128):
         raise ValueError(f"bigd: expected {(J, L * rows, 128, 2 * N - 128)}, "
                          f"got {tuple(bigd.shape)}")
-    if N % 128 or not 0 <= drop < 8 or cross < 0:
+    if N % 256 or not 0 <= drop < 8 or cross < 0:
         raise ValueError(f"unsupported N={N}, drop={drop}, cross={cross}")
     build_kernels()
     out = torch.empty_like(acc)

@@ -5,7 +5,7 @@ Counterpart of ``dct_cryptonets_tpu.fhe.pbs``.  Ciphertexts are ``int64``
 tensors (``fhe.torus``).  The blind rotate's CMUX step runs one of two of
 the TPU package's engines, step for step:
 
-* the fused engine: the Toeplitz strips of the step's key bytes
+* the fused engine: the K-major Toeplitz strips of the step's key bytes
   (:func:`~.kernels.build_bigd_strips`), the front half
   (:func:`~.kernels.rotate_decompose`) and the int8 external product with
   its 64-bit accumulate (:func:`~.kernels.fused_external`), on a
@@ -28,12 +28,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from dct_cryptonets_tpu.fhe.keys import ServerKeyMaterial
-from dct_cryptonets_tpu.fhe.params import TFHEParams
-
 from . import kernels as K
 from . import torus as T
 from .intmm import int8_matmul
+from .keys import ServerKeyMaterial
+from .params import TFHEParams
 
 I8 = torch.int8
 I64 = torch.int64
@@ -166,7 +165,8 @@ def _bigd_rows(bsk_bytes_i: torch.Tensor, k: int, levels: int, N: int,
 def build_bigd(bsk_bytes_i: torch.Tensor, k: int, levels: int, N: int,
                drop_limbs: int) -> torch.Tensor:
     """GGSW byte limbs -> (k+1, L*rows, 128, 2N-128) Toeplitz strip table
-    (plain version; the CMUX step uses :func:`~.kernels.build_bigd_strips`)."""
+    in the TPU kernel's layout (plain version; the CMUX step builds the
+    K-major table with :func:`~.kernels.build_bigd_strips`)."""
     return K.build_bigd_strips_plain(
         _bigd_rows(bsk_bytes_i, k, levels, N, drop_limbs))
 
@@ -307,7 +307,8 @@ def blind_rotate(test_poly: torch.Tensor, ct_a: torch.Tensor,
     acc = T.zeros((k + 1, M, N), test_poly.device)
     acc[k] = body
     for i in range(n):
-        strips = strips_fn(_bigd_rows(bsk_bytes[i], k, levels, N, drop_limbs))
+        strips = strips_fn(_bigd_rows(bsk_bytes[i], k, levels, N, drop_limbs),
+                           k_major=True)
         dB0, dB1 = front_fn(acc, a_cols[i], blog, levels)
         acc = back_fn(dB0, dB1, strips, acc, drop_limbs, cross)
     return acc.transpose(0, 1).contiguous()

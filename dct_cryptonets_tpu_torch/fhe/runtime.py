@@ -7,8 +7,11 @@ planes and run them as exact int8 products (im2col + ``torch._int_mm``),
 recombined with shifts mod 2^64.  TLUs gather every site of a layer into
 batched bootstraps (``fhe.pbs``) whose blind rotates run the hand-written
 CMUX kernels on the GPU.  Client-side encrypt/decrypt stays in numpy
-(``dct_cryptonets_tpu.fhe.keys``), so both packages produce the same keys
-and ciphertexts from the same seeds.
+(``fhe.keys``, the port's copy of the JAX package's), so both packages
+produce the same keys and ciphertexts from the same seeds.
+
+The module runs on CUDA unless the caller asks for the CPU
+(``device="cpu"``); without a GPU, :func:`default_device` raises.
 """
 import time
 from dataclasses import dataclass, field
@@ -17,18 +20,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from dct_cryptonets_tpu.fhe.keys import (ClientKeys, Csprng, decrypt_lwe,
-                                         encrypt_lwe, keygen,
-                                         make_aux_server_keys,
-                                         make_server_keys)
-from dct_cryptonets_tpu.fhe.params import (ExactRoundingConfig, TFHEParams,
-                                           default_exact_rounding,
-                                           params_for_precision)
-
 from . import torus as T
 from .circuit import (AddScaled, AddScaledPC, Circuit, Conv, Output, PoolSum,
                       QuantIn, Rescale, Tlu, Window, simulate)
 from .intmm import conv_out_hw, im2col, int8_matmul
+from .keys import (ClientKeys, Csprng, decrypt_lwe, encrypt_lwe, keygen,
+                   make_aux_server_keys, make_server_keys)
+from .params import (ExactRoundingConfig, TFHEParams, default_exact_rounding,
+                     params_for_precision)
 from .pbs import (DeviceAuxKeys, DeviceServerKeys, bootstrap_chunked,
                   clear_low_bits_chunked, preprocess_aux_keys,
                   preprocess_server_keys)
@@ -38,7 +37,13 @@ I64 = torch.int64
 
 
 def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The port's device: CUDA.  Raises when no GPU is usable; the CPU is
+    used only when a caller passes ``device="cpu"``."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on an NVIDIA GPU; "
+                           "pass device='cpu' (--device cpu) to run its "
+                           "plain versions on the CPU")
+    return torch.device("cuda")
 
 
 def _sync(device: torch.device):
@@ -89,7 +94,8 @@ def _set_body(flat: torch.Tensor, body: torch.Tensor) -> torch.Tensor:
 @dataclass
 class CompiledModule:
     """Compiled circuit + keys: the ``q_module`` surface the reference
-    drives (``forward(x, fhe="simulate" | "execute")``)."""
+    drives (``forward(x, fhe="simulate" | "execute")``).  ``device``:
+    default CUDA (:func:`default_device`); ``"cpu"`` only when asked."""
     circuit: Circuit
     params: TFHEParams
     client_keys: ClientKeys | None = None
@@ -365,7 +371,8 @@ def compile_qat_model(params, state, spec, *, n_bits: int = 5,
                       residual_mode: str = "fused",
                       device=None) -> CompiledModule:
     """QAT model (numpy params/state pytree) -> circuit -> executable
-    module.  ``rounding_threshold_bits``: an int (method "exact") or
+    module on ``device`` (default CUDA; ``"cpu"`` only when asked).
+    ``rounding_threshold_bits``: an int (method "exact") or
     ``{"n_bits": r, "method": "exact" | "approximate"}``."""
     from .compiler import lower
     method = "exact"

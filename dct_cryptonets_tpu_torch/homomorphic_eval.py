@@ -1,6 +1,6 @@
 """Homomorphic evaluation entry point, counterpart of
-``dct_cryptonets_tpu.homomorphic_eval`` with the same flags
-(``dct_cryptonets_tpu.config.parse_args``) and the same flow: load the
+``dct_cryptonets_tpu.homomorphic_eval`` with the same flags (the port's
+``config.parse_args``, plus ``--device``) and the same flow: load the
 checkpoint -> compile the QAT *trunk* to a TFHE circuit with calibration
 (the classifier stays clear) -> feasibility check -> keygen -> clear eval
 -> simulate eval -> execute eval -> reliability sweep.
@@ -11,6 +11,8 @@ Run (simulate, synthetic data, the committed flagship checkpoint):
       --image_size_dct 16 --checkpoint_path \
       checkpoints/digits_flagship/best.tar --test_subset 16 \
       --fhe_mode simulate
+
+It runs on the GPU; ``--device cpu`` runs the plain versions on the CPU.
 
 Not yet ported: random-weight models (a checkpoint is required), the PTQ
 compile, RGB ingest, datasets other than ``synthetic``, ``--mesh``,
@@ -25,14 +27,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from dct_cryptonets_tpu.config import parse_args
-from dct_cryptonets_tpu.utils import AverageMeter, topk_accuracy
-
 from .checkpoint import load_ckpt
+from .config import parse_args
 from .data import pipeline
 from .data.codec import CodecConfig, dct_ingest
 from .fhe.runtime import CompiledModule, compile_qat_model, default_device
 from .models.resnet import ModelSpec, QATResNet, build_spec
+from .utils import AverageMeter, topk_accuracy
 
 
 def make_ingest(codec_cfg: CodecConfig | None, device):
@@ -132,8 +133,11 @@ class Session:
 
 def prepare(cfg, device=None) -> Session:
     """Datasets, checkpoint, clear model and compiled module for ``cfg``
-    (the flags of ``parse_args("homomorphic_eval")``)."""
-    device = torch.device(device or default_device())
+    (the flags of ``parse_args("homomorphic_eval")``) on ``device``
+    (default ``cfg.device``: CUDA unless ``--device cpu``)."""
+    device = torch.device(device or cfg.device)
+    if device.type == "cuda":
+        device = default_device()        # raises without a GPU
     for flag in ("mesh", "profile_dir"):
         if getattr(cfg, flag, None):
             raise NotImplementedError(f"--{flag} is not yet ported")

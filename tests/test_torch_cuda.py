@@ -4,18 +4,19 @@ rotate_diff) against their plain PyTorch versions on the card, and the
 engines against each other, bit for bit.  Every test here needs an NVIDIA
 GPU and skips on the CPU.
 
-This file imports no JAX, so it also runs on a machine without it:
+This file imports no JAX and nothing of the JAX package, so it also runs
+on a machine without them:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 import numpy as np
 import pytest
 import torch
 
-from dct_cryptonets_tpu.fhe import keys as KEYS
-from dct_cryptonets_tpu.fhe.params import TEST_PARAMS, TEST_PARAMS_K2
+from dct_cryptonets_tpu_torch.fhe import keys as KEYS
 from dct_cryptonets_tpu_torch.fhe import kernels as K
 from dct_cryptonets_tpu_torch.fhe import pbs as P
 from dct_cryptonets_tpu_torch.fhe import torus as T
+from dct_cryptonets_tpu_torch.fhe.params import TEST_PARAMS, TEST_PARAMS_K2
 
 pytestmark = pytest.mark.cuda
 
@@ -41,9 +42,13 @@ def inputs(seed, k, M, N, levels, dev):
     return acc, amt, bsk
 
 
+# K3 takes a 128 x 256 output tile where that fills the card's waves as
+# well as 64 x 256 does (N=2048 at M=1000), else 64 x 256; M=129 and 4097
+# cross an M tile edge, drop=7 keeps a single byte scale
 @pytest.mark.parametrize("k,N,drop,cross,M", [
     (1, 256, 0, 0, 13), (2, 256, 2, 1, 256), (1, 2048, 0, 0, 300),
-    (2, 512, 0, 1, 1000), (1, 4096, 3, 0, 64)])
+    (2, 512, 0, 1, 1000), (1, 4096, 3, 0, 64), (2, 512, 0, 0, 129),
+    (2, 512, 2, 1, 4097), (1, 2048, 2, 1, 1000), (1, 256, 7, 0, 200)])
 def test_cmux_kernels_match_plain(dev, k, N, drop, cross, M):
     acc, amt, bsk = inputs(k + N + M, k, M, N, 2, dev)
     got = K.rotate_decompose(acc, amt, 15, 2)
@@ -51,8 +56,10 @@ def test_cmux_kernels_match_plain(dev, k, N, drop, cross, M):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     dbl = P._bigd_rows(bsk, k, 2, N, drop)
-    strips = K.build_bigd_strips(dbl)
-    assert torch.equal(strips, K.build_bigd_strips_plain(dbl))
+    assert torch.equal(K.build_bigd_strips(dbl),
+                       K.build_bigd_strips_plain(dbl))
+    strips = K.build_bigd_strips(dbl, k_major=True)
+    assert torch.equal(strips, K.build_bigd_strips_plain(dbl, k_major=True))
     dB0, dB1 = want
     assert torch.equal(K.fused_external(dB0, dB1, strips, acc, drop, cross),
                        K.fused_external_plain(dB0, dB1, strips, acc, drop,
@@ -129,7 +136,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="torch.int64"):
         K.rotate_decompose(acc.to(torch.int32), amt, 15, 2)
     dB0, dB1 = K.rotate_decompose(acc, amt, 15, 2)
-    strips = K.build_bigd_strips(P._bigd_rows(bsk, 1, 2, 256, 0))
+    strips = K.build_bigd_strips(P._bigd_rows(bsk, 1, 2, 256, 0),
+                                 k_major=True)
     with pytest.raises(ValueError, match="bigd"):
         K.fused_external(dB0, dB1, strips, acc, 2, 0)   # strips of drop 0
     with pytest.raises(ValueError, match="CUDA"):

@@ -1,6 +1,7 @@
 """The port's eval driver and data pipeline: the CLI in simulate mode, the
 seeded splits and batching against the JAX package, and the import rule
-(the port never loads JAX)."""
+(neither the port nor ``chip_smoke.py`` loads JAX or any module of the JAX
+package)."""
 import os
 import subprocess
 import sys
@@ -24,7 +25,8 @@ def test_homomorphic_eval_simulate(capsys):
     main(["--dataset", "synthetic", "--dct_status", "--model", "ResNet20qat",
           "--channels", "24", "--filter_size", "4", "--image_size_dct", "16",
           "--checkpoint_path", CKPT, "--test_subset", "4",
-          "--fhe_mode", "simulate", "--calib_batch_size", "8"])
+          "--fhe_mode", "simulate", "--calib_batch_size", "8",
+          "--device", "cpu"])
     out = capsys.readouterr().out
     assert "Loaded checkpoint" in out
     assert "Max bit-width:" in out and "it works in FHE" in out
@@ -37,7 +39,7 @@ def test_homomorphic_eval_simulate(capsys):
 def test_unported_driver_paths_raise():
     from dct_cryptonets_tpu_torch.homomorphic_eval import main
     base = ["--dataset", "synthetic", "--dct_status", "--channels", "24",
-            "--filter_size", "4", "--image_size_dct", "16"]
+            "--filter_size", "4", "--image_size_dct", "16", "--device", "cpu"]
     with pytest.raises(NotImplementedError, match="PTQ"):
         main(base + ["--model", "ResNet20", "--checkpoint_path", CKPT])
     with pytest.raises(NotImplementedError, match="checkpoint_path"):
@@ -71,9 +73,25 @@ def test_batches_match_jax(shuffle, drop):
         np.testing.assert_array_equal(gl, wl)
 
 
+# modules that must never load in the port's process: JAX and its kin, and
+# the JAX package itself (even its numpy-only modules)
+FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "dct_cryptonets_tpu")
+LOADED = (f"loaded = sorted(m for m in sys.modules "
+          f"if m.split('.')[0] in {FORBIDDEN!r})")
+
+
+def run_isolated(code: str) -> str:
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=REPO, env=env, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    return res.stdout
+
+
 def test_port_never_imports_jax():
-    """Every port module imports, and a CPU bootstrap runs on both
-    engines, without JAX entering ``sys.modules``."""
+    """Every port module imports, and a CPU bootstrap runs on both engines
+    under the port's own keys, without JAX or any ``dct_cryptonets_tpu``
+    module entering ``sys.modules``."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import numpy as np, torch
@@ -82,8 +100,8 @@ def test_port_never_imports_jax():
                                                       pkg.__name__ + ".")]
         for name in names:
             importlib.import_module(name)
-        from dct_cryptonets_tpu.fhe import keys as KEYS
-        from dct_cryptonets_tpu.fhe.params import TEST_PARAMS as par
+        from dct_cryptonets_tpu_torch.fhe import keys as KEYS
+        from dct_cryptonets_tpu_torch.fhe.params import TEST_PARAMS as par
         from dct_cryptonets_tpu_torch.fhe import pbs as P, torus as T
         ck = KEYS.keygen(par, seed=1)
         dsk = P.preprocess_server_keys(KEYS.make_server_keys(ck, seed=2))
@@ -98,14 +116,24 @@ def test_port_never_imports_jax():
             phase = KEYS.decrypt_lwe(ck, T.to_u64(out), key=ck.big_lwe_key)
             dec = np.round(phase.astype(np.int64) / 2.0 ** 58).astype(int)
             assert (dec == msgs).all(), (engine, dec)
-        loaded = sorted(m for m in sys.modules
-                        if m.split(".")[0] in ("jax", "jaxlib", "optax",
-                                               "flax"))
-        print(len(names), "modules;", "loaded:", loaded)
-        assert not loaded, loaded
-    """)
-    env = dict(os.environ, PYTHONPATH=REPO)
-    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, cwd=REPO, env=env, timeout=300)
-    assert res.returncode == 0, res.stdout + res.stderr
-    assert "loaded: []" in res.stdout
+    """) + LOADED + """
+print(len(names), "modules;", "loaded:", loaded)
+"""
+    assert "loaded: []" in run_isolated(code)
+
+
+def test_chip_smoke_never_imports_jax():
+    """``chip_smoke`` imports without JAX or the JAX package."""
+    out = run_isolated("import sys\nimport chip_smoke\n" + LOADED
+                       + "\nprint('loaded:', loaded)\n")
+    assert "loaded: []" in out
+
+
+def test_chip_smoke_refuses_to_run_without_a_gpu():
+    """Without a usable GPU the smoke exits nonzero and prints no result."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable, "chip_smoke.py"],
+                         capture_output=True, text=True, cwd=REPO, env=env,
+                         timeout=300)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout and "kernels" not in res.stdout

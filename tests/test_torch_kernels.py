@@ -1,7 +1,8 @@
-"""The CMUX kernels' plain versions (K1 rotate_decompose, K2 strips, K3
-fused_external) against the JAX Pallas kernels in interpret mode and the
-JAX conv engine, bit for bit.  The CUDA kernels are held against these
-plain versions on the card by ``test_torch_cuda.py``."""
+"""The CMUX kernels' plain versions (K1 rotate_decompose, K2 strips in both
+layouts, K3 fused_external on the K-major table) against the JAX Pallas
+kernels in interpret mode and the JAX conv engine, bit for bit.  The CUDA
+kernels are held against these plain versions on the card by
+``test_torch_cuda.py``."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -13,6 +14,7 @@ from dct_cryptonets_tpu.fhe import torus as JT
 from dct_cryptonets_tpu_torch.fhe import kernels as K
 from dct_cryptonets_tpu_torch.fhe import pbs as P
 from dct_cryptonets_tpu_torch.fhe import torus as T
+from dct_cryptonets_tpu_torch.fhe.params import TEST_PARAMS
 
 torch.set_num_threads(1)
 
@@ -64,18 +66,55 @@ def test_bigd_strips_plain_matches_pallas_and_xla(k, drop):
         P.build_bigd(torch.from_numpy(bsk_i), k, LEVELS, N, drop).numpy(), ref)
 
 
+@pytest.mark.parametrize("k,drop", [(1, 0), (2, 2)])
+def test_bigd_strips_k_major_matches_pallas_on_reversed_rows(k, drop):
+    """K2 with k_major is the TPU kernel's function on the reversed rows
+    rev[i] = dbl[(-i) mod 2N]."""
+    _, _, bsk_i, _ = make_inputs(25 + k, k, 8, drop)
+    dbl = P._bigd_rows(torch.from_numpy(bsk_i), k, LEVELS, N, drop)
+    rev = dbl[:, :, (-torch.arange(2 * N)) % (2 * N)].contiguous()
+    want = np.asarray(JK.build_bigd_strips(jnp.asarray(rev.numpy()),
+                                           interpret=True))
+    got = K.build_bigd_strips(dbl, k_major=True)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        K.build_bigd_strips_plain(dbl, k_major=True).numpy(), want)
+
+
+@pytest.mark.parametrize("n", [256, 512])
+def test_toeplitz_from_k_major_strip_matches_tpu_layout(n):
+    """The Toeplitz matrix rebuilt from a K-major strip equals the one
+    rebuilt from the TPU layout (rows [128 t0, 128 (t0+1)) are the column
+    slice [N - 128(t0+1), 2N - 128(t0+1)) of the strip) and
+    T[k, x] = dbl[(x - k) mod 2N]."""
+    dbl = torch.from_numpy(np.random.default_rng(n).integers(
+        -128, 128, (1, 1, 2 * n), dtype=np.int8))
+    tpu = np.asarray(JK.build_bigd_strips(jnp.asarray(dbl.numpy()),
+                                          interpret=True))[0, 0]
+    want = np.concatenate([tpu[:, n - 128 * (t0 + 1):2 * n - 128 * (t0 + 1)]
+                           for t0 in range(n // 128)], axis=0)
+    got = K.toeplitz_from_strip(K.build_bigd_strips(dbl, k_major=True)[0, 0])
+    np.testing.assert_array_equal(got.numpy(), want)
+    kk, xx = np.arange(n)[:, None], np.arange(n)[None, :]
+    np.testing.assert_array_equal(want, dbl[0, 0].numpy()[(xx - kk) % (2 * n)])
+
+
 @pytest.mark.parametrize("k,drop,cross,M", [(1, 0, 0, 13), (2, 2, 1, 8),
                                             (1, 2, 1, 8), (2, 0, 0, 13)])
 def test_fused_external_plain_matches_pallas(k, drop, cross, M):
+    """K3's plain version on the K-major table == the TPU kernel on its own
+    table."""
     acc, _, bsk_i, dB = make_inputs(30 + k, k, M, drop)
     bigd = JP.build_bigd(jnp.asarray(bsk_i), k, LEVELS, N, drop)
     jacc = JT.from_u64(acc)
     hi, lo = JK.fused_external(jnp.asarray(dB[0]), jnp.asarray(dB[1]), bigd,
                                jacc.hi, jacc.lo, drop, cross, block_m=M,
                                interpret=True)
+    strips = K.build_bigd_strips(
+        P._bigd_rows(torch.from_numpy(bsk_i), k, LEVELS, N, drop),
+        k_major=True)
     got = K.fused_external(torch.from_numpy(dB[0]), torch.from_numpy(dB[1]),
-                           torch.from_numpy(np.array(bigd)),
-                           T.from_u64(acc), drop, cross)
+                           strips, T.from_u64(acc), drop, cross)
     np.testing.assert_array_equal(T.to_u64(got),
                                   JT.to_u64(JT.T64(hi, lo)))
 
@@ -95,7 +134,8 @@ def test_cmux_step_matches_jax_conv_engine(k, drop, cross, M):
                               (BLOG, LEVELS, k, N), drop, cross)
     tacc = T.from_u64(acc)
     strips = K.build_bigd_strips(
-        P._bigd_rows(torch.from_numpy(bsk_i), k, LEVELS, N, drop))
+        P._bigd_rows(torch.from_numpy(bsk_i), k, LEVELS, N, drop),
+        k_major=True)
     dB0, dB1 = K.rotate_decompose(tacc, torch.from_numpy(amounts), BLOG,
                                   LEVELS)
     got = K.fused_external(dB0, dB1, strips, tacc, drop, cross)
@@ -120,6 +160,5 @@ def test_kernel_engine_refuses_cpu_tensors():
     acc = torch.zeros((1, N), dtype=torch.int64)
     ms = torch.zeros((1, 3), dtype=torch.int64)
     bsk = torch.zeros((3, 4, 2, 2 * N, 8), dtype=torch.int8)
-    from dct_cryptonets_tpu.fhe.params import TEST_PARAMS
     with pytest.raises(ValueError, match="needs CUDA"):
         P.blind_rotate(acc, ms, ms[:, 0], bsk, TEST_PARAMS, engine="kernel")
