@@ -12,8 +12,10 @@ Phases, each printed with its elapsed seconds; any failure exits nonzero:
      main (preset 6, N=2048) and extraction (k2n512f, N=512) lattices (K1
      and K2 in both layouts, K3 at every (drop, cross) and ragged M), each
      timed beside its bound (bytes over 3.35 TB/s or int8 operations over
-     1,979 TOPS) and, for K3, beside the library call that computes its
-     products (the s2d engine's two int8 GEMMs at the same M);
+     1,979 TOPS) and beside the library call that computes the same
+     function where there is one (K2: one advanced-index gather; K3: the
+     s2d engine's two int8 GEMMs at the same M); K1 on the main lattice
+     also at M=4096, the image's batch;
   3. the flagship ResNet20qat checkpoint compiled with calibration through
      the port's eval flow, keygen for preset 6 and k2n512f, then one
      production PBS batch under those keys: bootstrap and clear_low_bits on
@@ -23,7 +25,10 @@ Phases, each printed with its elapsed seconds; any failure exits nonzero:
      to the kernel engine (and to s2d_plain at 256 ciphertexts), one
      production chunk of 4096 on each lattice timed against the kernel
      engine, K1 and K4 launched once per CMUX step and K2/K3 not at all,
-     and one CMUX step of each engine timed on each lattice;
+     and one CMUX step of each engine timed on each lattice; then one
+     torch.profiler pass over one production chunk of each lattice on the
+     kernel engine: each kernel's device time as a share of the window,
+     and the device's idle share;
   5. the slice: one synthetic image through forward(fhe="execute") and
      forward(fhe="simulate"), same class, K1-K3 launched.
 
@@ -62,12 +67,14 @@ KERNELS = {
 FUSED_KERNELS = ("rotate_decompose", "build_bigd_strips", "fused_external")
 # (J, N, rows, production batch) of the main and extraction lattices
 LATTICES = {"main": (2, 2048, 4, 2048), "aux": (3, 512, 6, 4096)}
+IMAGE_M = 4096                  # the CLI's --pbs_batch and aux batch
 # the H100 SXM's peaks (NVIDIA's data sheet): HBM bytes/s, dense int8 ops/s
 HBM_BPS, INT8_OPS = 3.35e12, 1979e12
+SPIN_CYCLES = 4_000_000         # about 2 ms of the card's clock (cuda_ms)
 
 
 def bound(name, J, N, rows, M):
-    """(bound_ms, bound_by) of one call at phase 2's timed shapes (drop 0):
+    """(bound_ms, bound_by) of one call at phase 2's shapes (drop 0):
     each input read once, each output written once, over the HBM rate;
     for K3 also its int8 operations over the tensor-core peak."""
     L, lev = 8, rows // J
@@ -106,11 +113,16 @@ class Phase:
         return False
 
 
-def cuda_ms(fn, reps=5):
+def cuda_ms(fn, reps=20):
+    """Device milliseconds per call of fn, from CUDA events around reps
+    calls.  A spin kernel holds the stream while the host queues them, so
+    the host's launch costs (tens of microseconds a wrapper call) are not
+    counted where the device is faster."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -132,7 +144,7 @@ def rand_i64(gen, shape, dev):
 
 def phase_kernels(dev, record):
     """Every kernel against its plain version at production shapes.
-    record[name][lattice] gets (ms, plain_ms, library_ms or None)."""
+    record[name][lattice] gets (ms, plain_ms, library_ms or None, M)."""
     gen = torch.Generator(device=dev).manual_seed(1234)
     errs = {name: 0 for name in KERNELS}
 
@@ -154,7 +166,8 @@ def phase_kernels(dev, record):
             pairs = sum(len(v) for v in K.bucket_pairs(8, 0, 0).values())
             return 2 * J * pairs * rows * M * N * N / ms / 1e9
 
-        for M in (13, 256, Mprod):
+        # the image runs K1 at M=4096 on both lattices
+        for M in (13, 256, Mprod) + ((IMAGE_M,) if Mprod < IMAGE_M else ()):
             acc = rand_i64(gen, (J, M, N), dev)
             amt = torch.randint(0, 2 * N, (M,), generator=gen, device=dev,
                                 dtype=torch.int32)
@@ -162,10 +175,14 @@ def phase_kernels(dev, record):
             args = (acc, amt, 15, 2)
             check("rotate_decompose", K.rotate_decompose(*args),
                   K.rotate_decompose_plain(*args), f"{lat} M={M}")
-            if M == Mprod:
-                record["rotate_decompose"][lat] = (
+            if M in (Mprod, IMAGE_M):
+                record["rotate_decompose"][
+                    lat if M == Mprod else f"{lat} M={M}"] = (
                     cuda_ms(lambda: K.rotate_decompose(*args)),
-                    cuda_ms(lambda: K.rotate_decompose_plain(*args)), None)
+                    cuda_ms(lambda: K.rotate_decompose_plain(*args)), None,
+                    M)
+            if M != Mprod and M == IMAGE_M:
+                continue
             # the s2d engine's layout: a sample-major (M, J, N) accumulator
             sm = acc.transpose(0, 1).contiguous()
             check("rotate_decompose",
@@ -179,10 +196,10 @@ def phase_kernels(dev, record):
                     cuda_ms(lambda: K.rotate_decompose(
                         sm, amt, 15, 2, plane_major=False)),
                     cuda_ms(lambda: K.rotate_decompose_plain(
-                        sm, amt, 15, 2, plane_major=False)), None)
+                        sm, amt, 15, 2, plane_major=False)), None, M)
                 record["rotate_diff"][lat] = (
                     cuda_ms(lambda: K.rotate_diff(sm, amt)),
-                    cuda_ms(lambda: K.rotate_diff_plain(sm, amt)), None)
+                    cuda_ms(lambda: K.rotate_diff_plain(sm, amt)), None, M)
         # K4 on full-range int32 terms, so the int32 bucket sums wrap
         for drop, cross in ((0, 0), (2, 0), (0, 1), (2, 1)):
             for M in (13, 256) + ((Mprod,) if drop == cross == 0 else ()):
@@ -199,7 +216,7 @@ def phase_kernels(dev, record):
                     record["combine_accumulate"][lat] = (
                         cuda_ms(lambda: K.combine_accumulate(*args)),
                         cuda_ms(lambda: K.combine_accumulate_plain(*args)),
-                        None)
+                        None, M)
             del o0, o1
         for drop in (0, 2):
             C = (8 - drop) * rows
@@ -210,10 +227,12 @@ def phase_kernels(dev, record):
                       K.build_bigd_strips_plain(dbl, km),
                       f"{lat} drop={drop} k_major={km}")
             if drop == 0:
+                # the library: one gather with the index built beforehand
+                idx = (-K._strip_index(N, dev)) % (2 * N)
                 record["build_bigd_strips"][lat] = (
                     cuda_ms(lambda: K.build_bigd_strips(dbl, True)),
                     cuda_ms(lambda: K.build_bigd_strips_plain(dbl, True)),
-                    None)
+                    cuda_ms(lambda: dbl[:, :, idx]), Mprod)
             strips = K.build_bigd_strips(dbl, k_major=True)
             for cross in (0, 1):
                 for M in (13, 256) + ((Mprod,) if drop == cross == 0
@@ -232,17 +251,18 @@ def phase_kernels(dev, record):
                         plain = cuda_ms(lambda: K.fused_external_plain(*args),
                                         reps=2)
                         lib = library_ms(J, N, rows, M)
-                        record["fused_external"][lat] = (ms, plain, lib)
+                        record["fused_external"][lat] = (ms, plain, lib, M)
                         print(f"  fused_external {lat} M={M}: {ms:.3f} ms "
                               f"kernel ({tops(M, ms):.1f} TOPS), "
                               f"{plain:.3f} ms plain, {lib:.3f} ms library "
                               "(two int8 GEMMs)", flush=True)
     for name, per in record.items():
-        for lat, (ms, plain, lib) in per.items():
-            b, by = bound(name, *LATTICES[lat])
-            print(f"  time {name} {lat}: kernel {ms:.3f} ms, plain "
+        for lat, (ms, plain, lib, M) in per.items():
+            J, N, rows, _ = LATTICES[lat.split()[0]]
+            b, by = bound(name, J, N, rows, M)
+            print(f"  time {name} {lat}: kernel {ms:.4f} ms, plain "
                   f"{plain:.3f} ms, library "
-                  + ("-" if lib is None else f"{lib:.3f} ms")
+                  + ("-" if lib is None else f"{lib:.4f} ms")
                   + f", bound {b:.4f} ms ({by}), {100 * b / ms:.1f} % of "
                   "bound", flush=True)
     return errs
@@ -448,7 +468,7 @@ def phase_s2d(m, dev, card):
     ck, dsk, dak = m.client_keys, m.device_keys, m.aux_keys
     rng = np.random.default_rng(15)
     r, out_log2, n_in, shift = 6, 51, 10, 2
-    Mprod = 4096                      # the CLI's --pbs_batch and aux batch
+    Mprod = IMAGE_M
     launches = dict.fromkeys(KERNELS, 0)
 
     def fresh(M, msgs, delta_log2):
@@ -485,6 +505,7 @@ def phase_s2d(m, dev, card):
         return secs
 
     three = ("s2d", "kernel", "s2d_plain")
+    chunks = {}                       # the kernel engine's production chunks
     for M in (256, Mprod):
         ct = fresh(M, rng.integers(0, 2 ** r, M), 64 - r - 1)
         tables = torch.as_tensor(rng.integers(-2 ** 11, 2 ** 11, (M, 2 ** r)),
@@ -493,7 +514,15 @@ def phase_s2d(m, dev, card):
             ct, tables, dsk, par, out_log2, engine=e),
             three if M == 256 else three[:2],
             par.lwe_dim if M == Mprod else None)
+        if M == Mprod:
+            chunks["bootstrap preset 6"] = lambda ct=ct, tables=tables: \
+                P.bootstrap(ct, tables, dsk, par, out_log2, engine="kernel")
         ct = fresh(M, rng.integers(0, 1 << n_in, M), 63 - n_in)
+        if M == Mprod:
+            chunks[f"clear_low_bits k2n512f ({shift} bits)"] = \
+                lambda ct=ct: P.clear_low_bits(
+                    ct, dak, cfg.aux, n_in, shift, cfg.back_base_log,
+                    cfg.back_levels, engine="kernel")
         clear = run(f"clear_low_bits k2n512f M={M} shift={shift}",
                     lambda e: P.clear_low_bits(
                         ct, dak, cfg.aux, n_in, shift, cfg.back_base_log,
@@ -510,7 +539,49 @@ def phase_s2d(m, dev, card):
         print(f"  [{card}] CMUX step {lat} M={Mprod}: " + ", ".join(
             f"{k} {v:.3f}" + ("" if "TOPS" in k else " ms")
             for k, v in t.items()), flush=True)
+    for what, fn in chunks.items():
+        profile_chunk(fn, f"{what} M={Mprod}", card)
     return launches
+
+
+KERNEL_OF = {"rotate_decompose_kernel": "K1 rotate_decompose",
+             "bigd_strips_kernel": "K2 build_bigd_strips",
+             "fused_external_kernel": "K3 fused_external",
+             "combine_accumulate_kernel": "K4 combine_accumulate",
+             "rotate_diff_kernel": "K5 rotate_diff"}
+
+
+def profile_chunk(fn, what, card):
+    """One run of fn under torch.profiler: each kernel's device time as a
+    share of the window (first device activity's start to the last one's
+    end) and the device's idle share (the window less the union of device
+    activity).  The repo's kernels are named K1-K5, PyTorch's by the first
+    words of their names."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, secs = timed(fn)
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        raise AssertionError(f"profile {what}: no device activity traced")
+    window = max(end for _, end, _ in spans) - spans[0][0]
+    busy, reach, per = 0.0, spans[0][0], {}
+    for start, end, name in spans:
+        busy += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+        key = next((v for k, v in KERNEL_OF.items() if k in name),
+                   " ".join(name.split()[:3])[:60])
+        per[key] = per.get(key, 0.0) + (end - start)
+    top = sorted(per.items(), key=lambda kv: -kv[1])
+    print(f"  [{card}] profile {what}: window {window / 1e3:.1f} ms "
+          f"(host {secs:.2f} s with the profiler on), device idle "
+          f"{100 * (1 - busy / window):.2f} %; " + ", ".join(
+              f"{k} {100 * v / window:.2f} %" for k, v in top[:8]),
+          flush=True)
 
 
 def phase_slice(s, dev):
@@ -586,24 +657,28 @@ def main():
     with Phase("3 keygen + production PBS batch"):
         s = prepare_slice(dev)
         phase_pbs(s.module, dev)
-    with Phase("4 s2d engine"):
+    with Phase("4 s2d engine, profile"):
         s2d_launches = phase_s2d(s.module, dev, card)
     with Phase("5 flagship image"):
         launches = phase_slice(s, dev)
 
+    def timing(name, lat):
+        ms, plain, lib, M = record[name][lat]
+        J, N, rows, _ = LATTICES[lat.split()[0]]
+        b, by = bound(name, J, N, rows, M)
+        return {"M": M, "ms": ms, "plain_ms": plain, "bound_ms": b,
+                "bound_by": by, "library_ms": lib}
+
     kernels = []
     for name, (src, replaces) in KERNELS.items():
-        ms, plain, lib = record[name]["main"]
-        b, by = bound(name, *LATTICES["main"])
-        ms_a, plain_a, lib_a = record[name]["aux"]
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": replaces,
                  "launches": launches[name] + s2d_launches[name],
-                 "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
-                 "bound_ms": b, "bound_by": by, "library_ms": lib,
-                 "aux": {"ms": ms_a, "plain_ms": plain_a,
-                         "bound_ms": bound(name, *LATTICES["aux"])[0],
-                         "library_ms": lib_a}}
+                 "max_abs_err": errs[name], **timing(name, "main"),
+                 "aux": timing(name, "aux")}
+        for lat in record[name]:
+            if lat not in ("main", "aux"):
+                entry[lat] = timing(name, lat)
         if name == "rotate_diff":
             entry["note"] = ("no caller in either package: launched only "
                              "against its plain version in phase 2")

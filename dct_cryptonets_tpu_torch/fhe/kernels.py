@@ -53,6 +53,10 @@ BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "cuda")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# the largest N whose row fits one block's shared memory: K1 stages N
+# int64 (and byte planes), K2 2N bytes
+K1_MAX_N, K2_MAX_N = 16384, 65536
+
 _lib = None
 build_log = ""
 
@@ -211,8 +215,11 @@ def rotate_decompose(acc: torch.Tensor, amounts: torch.Tensor, blog: int,
     J, M, N = acc.shape
     if not plane_major:
         M, J = J, M
-    if N & (N - 1) or not 0 < blog * levels <= 32 or blog > 15:
-        raise ValueError(f"unsupported N={N}, blog={blog}, levels={levels}")
+    # the kernel stages a whole int64 row in shared memory (227 KB a block)
+    if (N & (N - 1) or not 0 < N <= K1_MAX_N or not 0 < blog * levels <= 32
+            or blog > 15 or not 0 < J < 2 ** 16 or M < 1):
+        raise ValueError(f"unsupported J={J}, M={M}, N={N}, blog={blog}, "
+                         f"levels={levels}")
     amounts = amounts.to(torch.int32)
     _check_cuda("amounts", amounts, torch.int32, 1, 4)
     if amounts.shape[0] != M or amounts.device != acc.device:
@@ -258,11 +265,12 @@ def build_bigd_strips(dbl: torch.Tensor, k_major: bool = False) -> torch.Tensor:
     """Kernel wrapper of :func:`build_bigd_strips_plain`."""
     if dbl.device.type == "cpu":
         return build_bigd_strips_plain(dbl, k_major)
-    _check_cuda("dbl", dbl, I8, 3, 4)
+    _check_cuda("dbl", dbl, I8, 3, 16)
     J, C, twoN = dbl.shape
     N = twoN // 2
-    if N % 128 or N & (N - 1):
-        raise ValueError(f"unsupported N={N}")
+    # the kernel stages a whole 2N-byte row in shared memory
+    if twoN % 2 or N % 128 or N & (N - 1) or N > K2_MAX_N or J * C < 1:
+        raise ValueError(f"unsupported shape {tuple(dbl.shape)}")
     build_kernels()
     out = torch.empty((J, C, 128, twoN - 128), dtype=I8, device=dbl.device)
     _launch(_lib.dctc_bigd_strips, dbl.data_ptr(), out.data_ptr(), J * C, N,

@@ -36,7 +36,7 @@ def inputs(seed, k, M, N, levels, dev):
                         device=dev, dtype=torch.int64)
     amt = torch.randint(0, 2 * N, (M,), generator=g, device=dev,
                         dtype=torch.int32)
-    amt[:3] = torch.tensor([0, N, 2 * N - 1], device=dev)
+    amt[:3] = torch.tensor([0, N, 2 * N - 1], device=dev)[:M]
     bsk = torch.randint(-128, 128, (rows, J, 2 * N, 8), generator=g,
                         device=dev, dtype=torch.int8)
     return acc, amt, bsk
@@ -77,6 +77,65 @@ def test_cmux_kernels_match_plain(dev, k, N, drop, cross, M):
               for _ in range(2))
     assert torch.equal(K.combine_accumulate(o0, o1, sm, drop, cross),
                        K.combine_accumulate_plain(o0, o1, sm, drop, cross))
+
+
+def assert_k1_equal(acc, amt, blog, levels, plane_major):
+    got = K.rotate_decompose(acc, amt, blog, levels, plane_major)
+    want = K.rotate_decompose_plain(acc, amt, blog, levels, plane_major)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+# every amount a = g*N + r in [0, 2N) once, r = 0 and a = N included
+@pytest.mark.parametrize("plane_major", [True, False])
+@pytest.mark.parametrize("N", [256, 512, 2048])
+def test_rotate_decompose_every_amount(dev, N, plane_major):
+    g = torch.Generator(device=dev).manual_seed(N)
+    shape = (2, 2 * N, N) if plane_major else (2 * N, 2, N)
+    acc = torch.randint(-2 ** 63, 2 ** 63 - 1, shape, generator=g,
+                        device=dev, dtype=torch.int64)
+    amt = torch.arange(2 * N, device=dev, dtype=torch.int32)
+    assert_k1_equal(acc, amt, 15, 2, plane_major)
+
+
+# K1 stages whole rows: the flagship lattices' N (512, 2048) and every other
+# preset's, M across the grid's edges, both layouts
+@pytest.mark.parametrize("plane_major", [True, False])
+@pytest.mark.parametrize("M", [1, 13, 129, 4097])
+@pytest.mark.parametrize("N", [256, 512, 2048, 4096, 8192])
+def test_rotate_decompose_matches_plain(dev, N, M, plane_major):
+    acc, amt, _ = inputs(N + M, 1, M, N, 2, dev)
+    if not plane_major:
+        acc = acc.transpose(0, 1).contiguous()
+    assert_k1_equal(acc, amt, 15, 2, plane_major)
+
+
+# other gadgets: N below one 16-byte store, and byte planes that take more
+# than one pass over the row (N=8192 at 4 and 32 levels)
+@pytest.mark.parametrize("N,J,blog,levels", [
+    (1, 2, 15, 2), (2, 3, 15, 2), (8, 2, 8, 4), (16, 1, 1, 32),
+    (256, 3, 10, 3), (4096, 2, 11, 2), (8192, 2, 8, 4), (8192, 1, 1, 32)])
+def test_rotate_decompose_gadgets_match_plain(dev, N, J, blog, levels):
+    g = torch.Generator(device=dev).manual_seed(N + levels)
+    M = 37
+    acc = torch.randint(-2 ** 63, 2 ** 63 - 1, (J, M, N), generator=g,
+                        device=dev, dtype=torch.int64)
+    amt = torch.randint(0, 2 * N, (M,), generator=g, device=dev,
+                        dtype=torch.int32)
+    assert_k1_equal(acc, amt, blog, levels, True)
+    assert_k1_equal(acc.transpose(0, 1).contiguous(), amt, blog, levels,
+                    False)
+
+
+@pytest.mark.parametrize("k_major", [False, True])
+@pytest.mark.parametrize("G", [1, 7])
+@pytest.mark.parametrize("N", [128, 256, 512, 1024, 2048, 4096, 8192])
+def test_bigd_strips_match_plain(dev, N, G, k_major):
+    g = torch.Generator(device=dev).manual_seed(N + G)
+    dbl = torch.randint(-128, 128, (1, G, 2 * N), generator=g, device=dev,
+                        dtype=torch.int8)
+    assert torch.equal(K.build_bigd_strips(dbl, k_major),
+                       K.build_bigd_strips_plain(dbl, k_major))
 
 
 @pytest.mark.parametrize("par", [TEST_PARAMS, TEST_PARAMS_K2],
@@ -142,6 +201,18 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         K.fused_external(dB0, dB1, strips, acc, 2, 0)   # strips of drop 0
     with pytest.raises(ValueError, match="CUDA"):
         K.fused_external(dB0, dB1, strips.cpu(), acc, 0, 0)
+    for N, blog, levels in ((768, 15, 2), (2 * K.K1_MAX_N, 15, 2),
+                            (256, 16, 2), (256, 11, 3)):
+        a = torch.zeros((2, 3, N), dtype=torch.int64, device=dev)
+        with pytest.raises(ValueError, match="unsupported"):
+            K.rotate_decompose(a, amt[:3], blog, levels)
+    for N in (64, 192, 2 * K.K2_MAX_N):
+        with pytest.raises(ValueError, match="unsupported"):
+            K.build_bigd_strips(torch.zeros((1, 1, 2 * N), dtype=torch.int8,
+                                            device=dev))
+    padded = torch.zeros((1, 1, 2 * 256 + 16), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        K.build_bigd_strips(padded[..., 1:2 * 256 + 1])
     o = torch.zeros((16, 2 * 8, 256), dtype=torch.int32, device=dev)
     K.combine_accumulate(o, o, acc.transpose(0, 1).contiguous(), 0)
     with pytest.raises(ValueError, match="o0"):
