@@ -10,12 +10,14 @@ Phases, each printed with its elapsed seconds; any failure exits nonzero:
      nvcc per source, all started together;
   2. each kernel against its plain PyTorch version, bit for bit, at the
      main (preset 6, N=2048) and extraction (k2n512f, N=512) lattices (K1
-     and K2 in both layouts, K3 at every (drop, cross) and ragged M), each
-     timed beside its bound (bytes over 3.35 TB/s or int8 operations over
-     1,979 TOPS) and beside the library call that computes the same
-     function where there is one (K2: one advanced-index gather; K3: the
-     s2d engine's two int8 GEMMs at the same M); K1 on the main lattice
-     also at M=4096, the image's batch;
+     and K2 in both layouts, K2 at drop 0, 1, 2 and 4, K3 at every (drop,
+     cross) with drop in {0, 1, 2, 4} and ragged M), each timed beside its
+     bound (bytes over 3.35 TB/s or int8 operations over 1,979 TOPS) and
+     beside the library call that computes the same function where there
+     is one (K2: one advanced-index gather; K3: the s2d engine's two int8
+     GEMMs at the same M and drop); K1 on the main lattice also at M=4096,
+     the image's batch; K2 and K3 also at the production M at every knob
+     the noise audit picks for the image (AUDIT_KNOBS);
   3. the flagship ResNet20qat checkpoint compiled with calibration through
      the port's eval flow, keygen for preset 6 and k2n512f, then one
      production PBS batch under those keys: bootstrap and clear_low_bits on
@@ -28,9 +30,21 @@ Phases, each printed with its elapsed seconds; any failure exits nonzero:
      and one CMUX step of each engine timed on each lattice; then one
      torch.profiler pass over one production chunk of each lattice on the
      kernel engine: each kernel's device time as a share of the window,
-     and the device's idle share;
+     and the device's idle share; then, at the noise audit's knobs, the
+     kernel engine equal to the s2d engine on one production bootstrap
+     chunk at (drop 2, cross 1) and one 2-bit clear_low_bits chunk at the
+     extraction knob (2, 1) with truncated keyswitches (5, 3) and keep_low 1;
   5. the slice: one synthetic image through forward(fhe="execute") and
-     forward(fhe="simulate"), same class, K1-K3 launched.
+     forward(fhe="simulate"), same class, K1-K3 launched;
+  6. the audited slice: the same image under drop_policy="audit" (p_error
+     0.01, phase 3's keys) through forward(fhe="execute", drop_limbs=0,
+     check_ref=True), as the driver's --drop_policy audit runs it: the
+     extraction lattice at the audit's knob and truncated keyswitches, the
+     main bootstraps with every key limb (the audit's main knobs realize
+     more slips than p_error on this image: tools/audit_image.py, PERF.md);
+     the audit's summary and knobs, the realized TLU slips per layer
+     (failing above p_error), the class from execute, simulate and the
+     clear model, K1-K3 launched.
 
 The second-to-last line is the kernels' JSON record, the last line the
 device record.
@@ -67,24 +81,31 @@ KERNELS = {
 FUSED_KERNELS = ("rotate_decompose", "build_bigd_strips", "fused_external")
 # (J, N, rows, production batch) of the main and extraction lattices
 LATTICES = {"main": (2, 2048, 4, 2048), "aux": (3, 512, 6, 4096)}
+# the (drop, cross) knobs the noise audit picks for the flagship image at
+# p_error 0.01 on each lattice (phase 6 prints them and runs the aux one;
+# tools/audit_image.py runs the main ones)
+AUDIT_KNOBS = {"main": ((1, 1), (2, 0), (2, 1), (4, 1)), "aux": ((2, 1),)}
+P_ERROR = 0.01
 IMAGE_M = 4096                  # the CLI's --pbs_batch and aux batch
 # the H100 SXM's peaks (NVIDIA's data sheet): HBM bytes/s, dense int8 ops/s
 HBM_BPS, INT8_OPS = 3.35e12, 1979e12
 SPIN_CYCLES = 4_000_000         # about 2 ms of the card's clock (cuda_ms)
 
 
-def bound(name, J, N, rows, M):
-    """(bound_ms, bound_by) of one call at phase 2's shapes (drop 0):
-    each input read once, each output written once, over the HBM rate;
-    for K3 also its int8 operations over the tensor-core peak."""
-    L, lev = 8, rows // J
+def bound(name, J, N, rows, M, drop=0, cross=0):
+    """(bound_ms, bound_by) of one call at phase 2's shapes: each input
+    read once, each output written once, over the HBM rate; for K3 also
+    its int8 operations over the tensor-core peak.  At a (drop, cross)
+    knob the strips hold L = 8 - drop key limbs and K3 runs the kept
+    (digit byte, key limb) pairs only."""
+    L, lev = 8 - drop, rows // J
     ops = 0
     if name.startswith("rotate_decompose"):
         nbytes = 8 * J * M * N + 4 * M + 2 * J * lev * M * N
     elif name == "build_bigd_strips":
         nbytes = J * L * rows * (2 * N + 128 * (2 * N - 128))
     elif name == "fused_external":
-        pairs = sum(len(v) for v in K.bucket_pairs(L, 0, 0).values())
+        pairs = sum(len(v) for v in K.bucket_pairs(L, drop, cross).values())
         ops = 2 * J * pairs * rows * M * N * N
         nbytes = (2 * rows * M * N + J * L * rows * 128 * (2 * N - 128)
                   + 16 * J * M * N)
@@ -142,9 +163,15 @@ def rand_i64(gen, shape, dev):
                          device=dev, dtype=torch.int64)
 
 
+def knob_key(lat, drop, cross=None):
+    return f"{lat} drop={drop}" + ("" if cross is None else f" cross={cross}")
+
+
 def phase_kernels(dev, record):
     """Every kernel against its plain version at production shapes.
-    record[name][lattice] gets (ms, plain_ms, library_ms or None, M)."""
+    record[name][key] gets (ms, plain_ms, library_ms or None, M, drop,
+    cross); key is the lattice, with the batch or the knob where those
+    differ from the lattice's production drop-0 call."""
     gen = torch.Generator(device=dev).manual_seed(1234)
     errs = {name: 0 for name in KERNELS}
 
@@ -161,9 +188,11 @@ def phase_kernels(dev, record):
                                  "version")
 
     for lat, (J, N, rows, Mprod) in LATTICES.items():
-        def tops(M, ms, J=J, N=N, rows=rows):
-            """int8 tensor ops per second at drop 0 (2 per multiply-add)."""
-            pairs = sum(len(v) for v in K.bucket_pairs(8, 0, 0).values())
+        def tops(M, ms, drop, cross, J=J, N=N, rows=rows):
+            """int8 tensor ops per second of K3's kept pairs (2 per
+            multiply-add)."""
+            pairs = sum(len(v) for v in K.bucket_pairs(
+                8 - drop, drop, cross).values())
             return 2 * J * pairs * rows * M * N * N / ms / 1e9
 
         # the image runs K1 at M=4096 on both lattices
@@ -180,7 +209,7 @@ def phase_kernels(dev, record):
                     lat if M == Mprod else f"{lat} M={M}"] = (
                     cuda_ms(lambda: K.rotate_decompose(*args)),
                     cuda_ms(lambda: K.rotate_decompose_plain(*args)), None,
-                    M)
+                    M, 0, 0)
             if M != Mprod and M == IMAGE_M:
                 continue
             # the s2d engine's layout: a sample-major (M, J, N) accumulator
@@ -196,10 +225,11 @@ def phase_kernels(dev, record):
                     cuda_ms(lambda: K.rotate_decompose(
                         sm, amt, 15, 2, plane_major=False)),
                     cuda_ms(lambda: K.rotate_decompose_plain(
-                        sm, amt, 15, 2, plane_major=False)), None, M)
+                        sm, amt, 15, 2, plane_major=False)), None, M, 0, 0)
                 record["rotate_diff"][lat] = (
                     cuda_ms(lambda: K.rotate_diff(sm, amt)),
-                    cuda_ms(lambda: K.rotate_diff_plain(sm, amt)), None, M)
+                    cuda_ms(lambda: K.rotate_diff_plain(sm, amt)), None, M,
+                    0, 0)
         # K4 on full-range int32 terms, so the int32 bucket sums wrap
         for drop, cross in ((0, 0), (2, 0), (0, 1), (2, 1)):
             for M in (13, 256) + ((Mprod,) if drop == cross == 0 else ()):
@@ -216,9 +246,10 @@ def phase_kernels(dev, record):
                     record["combine_accumulate"][lat] = (
                         cuda_ms(lambda: K.combine_accumulate(*args)),
                         cuda_ms(lambda: K.combine_accumulate_plain(*args)),
-                        None, M)
+                        None, M, 0, 0)
             del o0, o1
-        for drop in (0, 2):
+        knobs = AUDIT_KNOBS[lat]
+        for drop in (0, 1, 2, 4):
             C = (8 - drop) * rows
             dbl = torch.randint(-128, 128, (J, C, 2 * N), generator=gen,
                                 device=dev, dtype=torch.int8)
@@ -226,17 +257,18 @@ def phase_kernels(dev, record):
                 check("build_bigd_strips", K.build_bigd_strips(dbl, km),
                       K.build_bigd_strips_plain(dbl, km),
                       f"{lat} drop={drop} k_major={km}")
-            if drop == 0:
+            if drop == 0 or any(d == drop for d, _ in knobs):
                 # the library: one gather with the index built beforehand
                 idx = (-K._strip_index(N, dev)) % (2 * N)
-                record["build_bigd_strips"][lat] = (
+                record["build_bigd_strips"][
+                    lat if drop == 0 else knob_key(lat, drop)] = (
                     cuda_ms(lambda: K.build_bigd_strips(dbl, True)),
                     cuda_ms(lambda: K.build_bigd_strips_plain(dbl, True)),
-                    cuda_ms(lambda: dbl[:, :, idx]), Mprod)
+                    cuda_ms(lambda: dbl[:, :, idx]), Mprod, drop, 0)
             strips = K.build_bigd_strips(dbl, k_major=True)
             for cross in (0, 1):
-                for M in (13, 256) + ((Mprod,) if drop == cross == 0
-                                      else ()):
+                timed_here = drop == cross == 0 or (drop, cross) in knobs
+                for M in (13, 256) + ((Mprod,) if timed_here else ()):
                     acc = rand_i64(gen, (J, M, N), dev)
                     d0 = torch.randint(-128, 128, (rows, M, N), generator=gen,
                                        device=dev, dtype=torch.int8)
@@ -250,16 +282,19 @@ def phase_kernels(dev, record):
                         ms = cuda_ms(lambda: K.fused_external(*args))
                         plain = cuda_ms(lambda: K.fused_external_plain(*args),
                                         reps=2)
-                        lib = library_ms(J, N, rows, M)
-                        record["fused_external"][lat] = (ms, plain, lib, M)
-                        print(f"  fused_external {lat} M={M}: {ms:.3f} ms "
-                              f"kernel ({tops(M, ms):.1f} TOPS), "
-                              f"{plain:.3f} ms plain, {lib:.3f} ms library "
-                              "(two int8 GEMMs)", flush=True)
+                        lib = library_ms(J, N, rows, M, drop)
+                        key = lat if drop == cross == 0 else knob_key(
+                            lat, drop, cross)
+                        record["fused_external"][key] = (ms, plain, lib, M,
+                                                         drop, cross)
+                        print(f"  fused_external {key} M={M}: {ms:.3f} ms "
+                              f"kernel ({tops(M, ms, drop, cross):.1f} "
+                              f"TOPS), {plain:.3f} ms plain, {lib:.3f} ms "
+                              "library (two int8 GEMMs)", flush=True)
     for name, per in record.items():
-        for lat, (ms, plain, lib, M) in per.items():
+        for lat, (ms, plain, lib, M, drop, cross) in per.items():
             J, N, rows, _ = LATTICES[lat.split()[0]]
-            b, by = bound(name, J, N, rows, M)
+            b, by = bound(name, J, N, rows, M, drop, cross)
             print(f"  time {name} {lat}: kernel {ms:.4f} ms, plain "
                   f"{plain:.3f} ms, library "
                   + ("-" if lib is None else f"{lib:.4f} ms")
@@ -268,18 +303,19 @@ def phase_kernels(dev, record):
     return errs
 
 
-def library_ms(J, N, rows, M):
-    """The same products as K3 at drop 0 from the library: the s2d
-    engine's two int8 GEMMs (``torch._int_mm``, 16/15 of K3's
-    multiply-adds: one pair more, which wraps out of 2^64) on its operand
-    of random key bytes."""
+def library_ms(J, N, rows, M, drop=0):
+    """The same products as K3 from the library: the s2d engine's two int8
+    GEMMs (``torch._int_mm``) on its operand of random key bytes at the
+    same drop.  They run every (digit byte, kept key limb) pair: at drop 0
+    one pair more than K3 (it wraps out of 2^64), and at a knob also the
+    pairs K3 skips."""
     from dct_cryptonets_tpu_torch.fhe import pbs as P
     from dct_cryptonets_tpu_torch.fhe.intmm import int8_matmul
 
     gen = torch.Generator(device="cuda").manual_seed(M)
     bsk = torch.randint(-128, 128, (rows, J, 2 * N, 8), generator=gen,
                         device="cuda", dtype=torch.int8)
-    kern = P.expand_bsk_kernel_s2d(bsk, J - 1, rows // J, N, 0)
+    kern = P.expand_bsk_kernel_s2d(bsk, J - 1, rows // J, N, drop)
     d0, d1 = (torch.randint(-128, 128, (M, rows * N), generator=gen,
                             device="cuda", dtype=torch.int8)
               for _ in range(2))
@@ -529,6 +565,20 @@ def phase_s2d(m, dev, card):
                         cfg.back_levels, engine=e),
                     three if M == 256 else three[:2],
                     shift * cfg.aux.lwe_dim if M == Mprod else None)
+    # the audit's knobs: main (drop 2, cross 1); extraction (2, 1) with the
+    # truncated keyswitches (5, 3), keeping the lowest bit
+    ct = fresh(Mprod, rng.integers(0, 2 ** r, Mprod), 64 - r - 1)
+    tables = torch.as_tensor(rng.integers(-2 ** 11, 2 ** 11, (Mprod, 2 ** r)),
+                             dtype=torch.int32, device=dev)
+    run(f"bootstrap preset 6 M={Mprod} drop=2 cross=1", lambda e: P.bootstrap(
+        ct, tables, dsk, par, out_log2, 2, 1, engine=e), three[:2],
+        par.lwe_dim)
+    ct = fresh(Mprod, rng.integers(0, 1 << n_in, Mprod), 63 - n_in)
+    run(f"clear_low_bits k2n512f M={Mprod} shift={shift} keep_low=1 drop=2 "
+        "cross=1 ks_drop=5/3", lambda e: P.clear_low_bits(
+            ct, dak, cfg.aux, n_in, shift, cfg.back_base_log,
+            cfg.back_levels, 2, 1, 5, 3, 1, engine=e), three[:2],
+        (shift - 1) * cfg.aux.lwe_dim)
     print(f"  [{card}] production chunk, M={Mprod}: bootstrap preset 6 "
           f"s2d {boot['s2d']:.2f} s, kernel {boot['kernel']:.2f} s; "
           f"clear_low_bits k2n512f ({shift} bits) s2d {clear['s2d']:.2f} s, "
@@ -625,6 +675,91 @@ def phase_slice(s, dev):
     return launches
 
 
+def phase_audited(s, dev, drop_limbs=0, enforce=True):
+    """The phase-5 image under drop_policy="audit" with the realized-slip
+    audit, on phase 3's keys and the extraction knobs keygen would set.
+
+    drop_limbs=0 runs the main bootstraps with every key limb, as the
+    driver's ``--drop_policy audit`` does (its ``--drop_limbs`` default):
+    the audit picks the extraction lattice's knob, its truncated
+    keyswitches and keep_low.  drop_limbs=None also runs the audit's
+    per-layer main (drop, cross) knobs; on the flagship those realize more
+    TLU slips than p_error (PERF.md), so only
+    ``tools/audit_image.py`` runs them.  enforce: fail when the realized
+    slips exceed p_error or K1-K3 were not launched.  Returns the kernels'
+    launch counts of the execute run and the module."""
+    from collections import Counter
+
+    from dct_cryptonets_tpu_torch.fhe import Csprng
+    from dct_cryptonets_tpu_torch.fhe.circuit import Tlu
+    from dct_cryptonets_tpu_torch.fhe.runtime import CompiledModule
+
+    m = s.module
+    am = CompiledModule(
+        m.circuit, m.params, client_keys=m.client_keys,
+        device_keys=m.device_keys, pbs_batch=m.pbs_batch,
+        aux_batch=m.aux_batch, rounding_method=m.rounding_method,
+        exact_cfg=m.exact_cfg, aux_keys=m.aux_keys, drop_policy="audit",
+        p_error=P_ERROR, device=dev)
+    t = time.time()
+    am.choose_aux_knobs()
+    audit = am.run_audit()
+    print(f"  audit: {time.time() - t:.2f} s\n" + audit.summary(), flush=True)
+    hist = Counter()
+    for r in audit.reports:
+        hist[f"({r.drop_limbs},{r.cross})"] += r.sites
+    keeps = Counter(r.keep_low for r in audit.reports)
+    print(f"  main knobs, sites per (drop,cross): {dict(hist)}; keep_low "
+          f"per layer: {dict(keeps)}; aux knob ({am.aux_drop_limbs},"
+          f"{am.aux_cross}); keyswitch drops fwd {am.aux_fwd_ks_drop} back "
+          f"{am.aux_back_ks_drop}; this run's main knobs: "
+          + ("the audit's" if drop_limbs is None else f"drop {drop_limbs}"),
+          flush=True)
+    images, labels = s.testset.gather(s.test_idx[:1])
+    x = s.ingest(images).cpu().numpy()
+    K.reset_launch_counts()
+    feats = am.forward(x, fhe="execute", drop_limbs=drop_limbs,
+                       enc_rng=Csprng(5), check_ref=True)
+    launches = K.launch_counts()
+    sim = am.forward(x, fhe="simulate")
+    st = am.stats
+    print(f"  launches in the execute run: {launches}", flush=True)
+    print("  stats: " + json.dumps({k: st.get(k) for k in (
+        "execute_time", "levelled_time", "pbs_time", "extract_time",
+        "pbs_per_sec", "pbs_executed", "aux_pbs_executed", "audit_time")}),
+        flush=True)
+    acc_of = {op.out: op.x for op in am.circuit.ops if isinstance(op, Tlu)}
+    for wire, n_bad, n, n_gross, max_abs in st["tlu_slip_detail"]:
+        p_tlu = audit.by_acc[acc_of[wire]].p_total
+        print(f"  slips {wire}: {n_bad}/{n} (|d| > 1: {n_gross}, max |d| "
+              f"{max_abs}; audited p {p_tlu:.2e})", flush=True)
+    slips, sites = st["tlu_slips"], st["tlu_sites"]
+    print(f"  realized TLU slips: {slips}/{sites} = {slips / sites:.5f} "
+          f"(p_error {P_ERROR})", flush=True)
+    if feats.shape != sim.shape or not np.all(np.isfinite(feats)):
+        raise AssertionError(f"bad features {feats.shape} vs {sim.shape}")
+    clf_w = np.asarray(s.params["classifier"]["w"])
+    clf_b = np.asarray(s.params["classifier"]["b"])
+    with torch.no_grad():
+        _, logits = s.model(torch.as_tensor(x, device=dev))
+    print(f"  class: execute {int(np.argmax(feats @ clf_w + clf_b))}, "
+          f"simulate {int(np.argmax(sim @ clf_w + clf_b))}, clear QAT model "
+          f"{int(logits.argmax())}, label {int(labels[0])}; features that "
+          f"differ between execute and simulate: "
+          f"{int(np.count_nonzero(feats != sim))}/{feats.size}", flush=True)
+    if sites != m.circuit.num_pbs:
+        raise AssertionError(f"slip audit saw {sites} of "
+                             f"{m.circuit.num_pbs} TLU sites")
+    if enforce and slips > P_ERROR * sites:
+        raise AssertionError(f"realized slips {slips}/{sites} exceed "
+                             f"p_error {P_ERROR}")
+    missing = [k for k in FUSED_KERNELS if launches[k] == 0]
+    if enforce and missing:
+        raise AssertionError(f"kernels not launched on the audited path: "
+                             f"{missing}")
+    return launches, am
+
+
 def main():
     with Phase("0 device"):
         if not torch.cuda.is_available():
@@ -661,19 +796,25 @@ def main():
         s2d_launches = phase_s2d(s.module, dev, card)
     with Phase("5 flagship image"):
         launches = phase_slice(s, dev)
+    with Phase("6 audited flagship image"):
+        audited_launches, _ = phase_audited(s, dev)
 
     def timing(name, lat):
-        ms, plain, lib, M = record[name][lat]
+        ms, plain, lib, M, drop, cross = record[name][lat]
         J, N, rows, _ = LATTICES[lat.split()[0]]
-        b, by = bound(name, J, N, rows, M)
-        return {"M": M, "ms": ms, "plain_ms": plain, "bound_ms": b,
-                "bound_by": by, "library_ms": lib}
+        b, by = bound(name, J, N, rows, M, drop, cross)
+        return {"M": M, "drop": drop, "cross": cross, "ms": ms,
+                "plain_ms": plain, "bound_ms": b, "bound_by": by,
+                "library_ms": lib}
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():
+        by_path = {"image, drop_policy none": launches[name],
+                   "image, drop_policy audit": audited_launches[name],
+                   "s2d chunks": s2d_launches[name]}
         entry = {"name": name, "route": "cuda", "source": src,
-                 "replaces": replaces,
-                 "launches": launches[name] + s2d_launches[name],
+                 "replaces": replaces, "launches": sum(by_path.values()),
+                 "launches_by_path": by_path,
                  "max_abs_err": errs[name], **timing(name, "main"),
                  "aux": timing(name, "aux")}
         for lat in record[name]:

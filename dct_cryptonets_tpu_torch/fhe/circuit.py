@@ -313,7 +313,10 @@ def _lookup(table: np.ndarray, u: torch.Tensor) -> torch.Tensor:
     return t[torch.arange(t.shape[0], device=u.device), u]
 
 
-def _run(circuit: Circuit, x: torch.Tensor, ranges: dict | None):
+def _run(circuit: Circuit, x: torch.Tensor, ranges: dict | None,
+         slip=None):
+    """``slip``: optional ``(index, spec) -> index`` applied to every TLU's
+    rounded index before its lookup (:func:`simulate_noisy`)."""
     env = {}
     out = None
 
@@ -344,7 +347,10 @@ def _run(circuit: Circuit, x: torch.Tensor, ranges: dict | None):
             env[op.out] = ca * env[op.a] + cb * env[op.b]
             pc_max(op.out)
         elif isinstance(op, Tlu):
-            env[op.out] = _lookup(op.table, tlu_index(env[op.x], op.spec))
+            u = tlu_index(env[op.x], op.spec)
+            if slip is not None:
+                u = slip(u, op.spec)
+            env[op.out] = _lookup(op.table, u)
         elif isinstance(op, Output):
             y = env[op.x]
             out = y.reshape(y.shape[0], -1).to(torch.float32) * op.scale
@@ -363,6 +369,29 @@ def simulate(circuit: Circuit, x, return_env: bool = False):
     out, env = _run(circuit, x, None)
     assert out is not None, "circuit has no Output op"
     return (out, env) if return_env else out
+
+
+def simulate_noisy(circuit: Circuit, x, generator: torch.Generator,
+                   p_slip: float) -> torch.Tensor:
+    """:func:`simulate` with the TFHE statistical fault model injected:
+    every TLU index moves by +-1 (each direction equally likely) with
+    probability ``p_slip``, then is clipped to [0, 2^in_bits) — a PBS
+    landing one table window off.  A fast preview of encrypted-accuracy
+    degradation without ciphertexts.
+
+    ``generator``: the source of the draws (two uniforms per TLU site, on
+    the generator's device); the same seed gives the same output.  Its
+    draws are not those of the JAX package's ``jax.random`` key."""
+    def slip(u, spec):
+        draws = torch.rand((2,) + tuple(u.shape), generator=generator,
+                           device=generator.device).to(u.device)
+        step = torch.where(draws[1] < 0.5, -1, 1)
+        u = u + torch.where(draws[0] < p_slip, step, 0)
+        return torch.clamp(u, 0, (1 << spec.in_bits) - 1)
+
+    out, _ = _run(circuit, torch.as_tensor(x), None, slip)
+    assert out is not None, "circuit has no Output op"
+    return out
 
 
 def collect_acc_ranges(circuit: Circuit, x) -> dict:

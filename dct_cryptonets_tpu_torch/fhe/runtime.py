@@ -10,6 +10,14 @@ CMUX kernels on the GPU.  Client-side encrypt/decrypt stays in numpy
 (``fhe.keys``, the port's copy of the JAX package's), so both packages
 produce the same keys and ciphertexts from the same seeds.
 
+Two drop policies: ``"none"`` runs every bootstrap with all key limbs
+(bit-exact against the simulator while the noise stays below half an
+accumulator LSB); ``"audit"`` runs each TLU layer at the throughput knobs
+that the circuit noise audit (``fhe.noise_audit``) proves safe under the
+per-PBS ``p_error`` (Concrete's semantics): main (drop_limbs, cross) per
+layer, partial clearing ``keep_low`` per layer, and the extraction
+lattice's knob and truncated keyswitches.
+
 The module runs on CUDA unless the caller asks for the CPU
 (``device="cpu"``); without a GPU, :func:`default_device` raises.
 """
@@ -26,6 +34,7 @@ from .circuit import (AddScaled, AddScaledPC, Circuit, Conv, Output, PoolSum,
 from .intmm import conv_out_hw, im2col, int8_matmul
 from .keys import (ClientKeys, Csprng, decrypt_lwe, encrypt_lwe, keygen,
                    make_aux_server_keys, make_server_keys)
+from .noise_audit import AuditResult, audit_circuit
 from .params import (ExactRoundingConfig, TFHEParams, default_exact_rounding,
                      params_for_precision)
 from .pbs import (DeviceAuxKeys, DeviceServerKeys, bootstrap_chunked,
@@ -34,6 +43,7 @@ from .pbs import (DeviceAuxKeys, DeviceServerKeys, bootstrap_chunked,
 
 U64 = np.uint64
 I64 = torch.int64
+DROP_POLICIES = ("none", "audit")
 
 
 def default_device() -> torch.device:
@@ -106,15 +116,21 @@ class CompiledModule:
     rounding_method: str = "exact"
     exact_cfg: ExactRoundingConfig | None = None
     aux_keys: DeviceAuxKeys | None = None
+    # extraction knobs: the aux blind rotate's limb drop (None: the audit's
+    # under "audit", 0 under "none", set at keygen) and cross skip, and the
+    # truncated-KSK limb drops of its two keyswitch hops
+    aux_drop_limbs: int | None = None
+    aux_cross: int = 0
+    aux_fwd_ks_drop: int = 0
+    aux_back_ks_drop: int = 0
+    # "none": every limb of every key; "audit": the noise audit's knobs
     drop_policy: str = "none"
     p_error: float = 0.01
     device: torch.device | None = None
+    audit: AuditResult | None = field(default=None, repr=False)
 
     def __post_init__(self):
-        if self.drop_policy == "audit":
-            raise NotImplementedError(
-                "drop_policy='audit' is not yet ported")
-        if self.drop_policy != "none":
+        if self.drop_policy not in DROP_POLICIES:
             raise ValueError(f"unknown drop_policy {self.drop_policy!r}")
         if self.device is None:
             self.device = default_device()
@@ -129,6 +145,33 @@ class CompiledModule:
                 and any(isinstance(op, Tlu) and op.spec.shift > 0
                         for op in self.circuit.ops))
 
+    def run_audit(self) -> AuditResult:
+        """The circuit noise audit of this module (computed once, then
+        cached): per-TLU error probabilities and the knobs the "audit"
+        policy runs."""
+        if self.audit is None:
+            if self.exact_cfg is None and self._needs_extraction():
+                self.exact_cfg = default_exact_rounding(self.params)
+            self.audit = audit_circuit(
+                self.circuit, self.params, p_error=self.p_error,
+                rounding_method=self.rounding_method,
+                exact_cfg=self.exact_cfg)
+        return self.audit
+
+    def choose_aux_knobs(self):
+        """Set the extraction knobs left at None: the audit's under
+        "audit", no drops under "none".  :meth:`keygen` calls it; call it
+        after taking keys made elsewhere."""
+        if self.aux_drop_limbs is not None:
+            return
+        if self.drop_policy == "audit":
+            a = self.run_audit()
+            self.aux_drop_limbs, self.aux_cross = a.aux_drop_limbs, a.aux_cross
+            self.aux_fwd_ks_drop = a.aux_fwd_ks_drop
+            self.aux_back_ks_drop = a.aux_back_ks_drop
+        else:
+            self.aux_drop_limbs = 0
+
     def keygen(self, seed: int = 0):
         t = time.time()
         self.client_keys = keygen(self.params, seed)
@@ -142,6 +185,11 @@ class CompiledModule:
                 back_base_log=self.exact_cfg.back_base_log,
                 back_levels=self.exact_cfg.back_levels)
             self.aux_keys = preprocess_aux_keys(ak, self.device)
+            self.choose_aux_knobs()
+            # The JAX package also precomputes the extraction lattice's
+            # Toeplitz strip table here; the port's fused engine builds
+            # each CMUX step's strips with K2 instead (a precomputed table
+            # is ROADMAP Queue 3 item 4).
         _sync(self.device)
         self.stats["keygen_time"] = time.time() - t
 
@@ -189,11 +237,16 @@ class CompiledModule:
         """Server-side evaluation with per-stage wall-clock accounting
         (``stats``: execute_time, levelled_time, pbs_time, pbs_per_sec, ...).
 
+        ``drop_limbs``: one main limb drop for every TLU; None follows the
+        policy (0 under "none", the audit's per-layer knobs under "audit").
+
         ``check_ref``: optional clear wire environment from
         ``simulate(..., return_env=True)``: every TLU output is decrypted
         and compared with its clear value (the realized-slip audit);
         mismatches are re-aligned on the body so each TLU measures its own
         slips."""
+        if drop_limbs is None and self.drop_policy == "audit":
+            self.run_audit()
         env = {}
         # free each ciphertext wire after its last consumer
         last_use: dict = {}
@@ -293,8 +346,13 @@ class CompiledModule:
 
     def _run_tlu(self, ct: torch.Tensor, op: Tlu,
                  drop_limbs: int | None) -> torch.Tensor:
-        drop_limbs = drop_limbs or 0
         cross = 0
+        audited = self.drop_policy == "audit" and self.audit is not None
+        if drop_limbs is None:
+            drop_limbs = 0
+            if audited:
+                drop_limbs = self.audit.drop_for(op.x)
+                cross = self.audit.cross_for(op.x)
         spec = op.spec
         B, n1, H, W, C = ct.shape
         M = B * H * W * C
@@ -309,22 +367,36 @@ class CompiledModule:
             off_log2 = (62 - spec.in_bits) if exact else (62 - n_in)
             const = const + T.from_i32_shifted(1, off_log2, ct.device)
         flat = _set_body(flat, flat[:, -1:] + const)
+        # partial clearing (the audit's keep_low): the low `keep` dropped
+        # bits stay uncleared and ride as a bounded offset
+        keep = min(self.audit.keep_for(op.x), spec.shift) \
+            if exact and audited else 0
 
         tables = torch.as_tensor(np.asarray(op.table, np.int32),
                                  device=ct.device)           # (C, 2^r)
         site_tables = tables.expand(B * H * W, C, -1).reshape(M, -1)
         out_delta = 63 - spec.out_n
-        if exact:
+        if exact and spec.shift > keep:
             assert self.aux_keys is not None, "keygen() first"
             cfg = self.exact_cfg
             t_ext = time.time()
             flat = clear_low_bits_chunked(
                 flat, self.aux_keys, cfg.aux, n_in, spec.shift,
-                cfg.back_base_log, cfg.back_levels, self.aux_batch)
+                cfg.back_base_log, cfg.back_levels, self.aux_batch,
+                self.aux_drop_limbs, self.aux_cross, self.aux_fwd_ks_drop,
+                self.aux_back_ks_drop, keep)
             _sync(self.device)
             self._t_extract += time.time() - t_ext
             self.stats["aux_pbs_executed"] = (
-                self.stats.get("aux_pbs_executed", 0) + spec.shift * M)
+                self.stats.get("aux_pbs_executed", 0)
+                + (spec.shift - keep) * M)
+        if keep > 0:
+            # center the uncleared junk on the window center: after the
+            # clearing, so the subtraction cannot borrow into the cleared
+            # bit field (before it, the main PBS would read one window low
+            # for a 2^(keep-1)/2^shift fraction of accumulator values)
+            cc = T.from_i32_shifted(1, 62 - n_in + keep, ct.device)
+            flat = _set_body(flat, flat[:, -1:] - cc)
         out = bootstrap_chunked(flat, site_tables, self.device_keys,
                                 self.params, out_delta, self.pbs_batch,
                                 drop_limbs, cross)
@@ -381,9 +453,8 @@ def compile_qat_model(params, state, spec, *, n_bits: int = 5,
         rounding_threshold_bits = rounding_threshold_bits["n_bits"]
     if method not in ("exact", "approximate"):
         raise ValueError(f"unknown rounding method {method!r}")
-    if drop_policy != "none":
-        raise NotImplementedError(f"drop_policy={drop_policy!r} is not yet "
-                                  "ported")
+    if drop_policy not in DROP_POLICIES:
+        raise ValueError(f"unknown drop_policy {drop_policy!r}")
     circ = lower(params, state, spec, n_bits=n_bits,
                  rounding_threshold_bits=rounding_threshold_bits,
                  calib_absmax=calib_absmax, calib_data=calib_data,

@@ -14,9 +14,24 @@ Run (simulate, synthetic data, the committed flagship checkpoint):
 
 It runs on the GPU; ``--device cpu`` runs the plain versions on the CPU.
 
+``--drop_policy audit`` runs the exact-rounding extraction at the knobs the
+circuit noise audit picks under ``--p_error`` (the extraction lattice's
+(drop, cross), its truncated keyswitches, ``keep_low``), and the main
+bootstraps at ``--drop_limbs`` (default 0: every key limb), as the JAX
+driver does; ``--dump_circuit`` appends the audit's summary to the
+listing.  The audit's own per-layer main knobs (``drop_limbs=None`` in
+``CompiledModule.forward``) realize more TLU slips than ``--p_error`` on
+the flagship image (PERF.md), so the driver does not run them.
+The encrypted image on the card, with the realized-slip audit:
+  python -m dct_cryptonets_tpu_torch.homomorphic_eval --dataset synthetic \
+      --dct_status --model ResNet20qat --channels 24 --filter_size 4 \
+      --image_size_dct 16 --checkpoint_path \
+      checkpoints/digits_flagship/best.tar --test_subset 1 \
+      --drop_policy audit --fhe_mode execute --slip_audit
+
 Not yet ported: random-weight models (a checkpoint is required), the PTQ
-compile, RGB ingest, datasets other than ``synthetic``, ``--mesh``,
-``--profile_dir`` and ``--drop_policy audit``.
+compile, RGB ingest, datasets other than ``synthetic``, ``--mesh`` and
+``--profile_dir``.
 """
 import json
 import os
@@ -203,8 +218,11 @@ def main(argv=None):
            else " too high for FHE computation"))
     print(f"PBS per image: {module.circuit.num_pbs}")
     if cfg.dump_circuit:
+        text = module.circuit.dump()
+        if cfg.drop_policy == "audit":
+            text += "\n\n" + module.run_audit().summary()
         with open(cfg.dump_circuit, "w") as fh:
-            fh.write(module.circuit.dump() + "\n")
+            fh.write(text + "\n")
         print(f"Circuit dumped to {cfg.dump_circuit}")
 
     if cfg.fhe_mode == "execute":

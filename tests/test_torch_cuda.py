@@ -16,7 +16,8 @@ from dct_cryptonets_tpu_torch.fhe import keys as KEYS
 from dct_cryptonets_tpu_torch.fhe import kernels as K
 from dct_cryptonets_tpu_torch.fhe import pbs as P
 from dct_cryptonets_tpu_torch.fhe import torus as T
-from dct_cryptonets_tpu_torch.fhe.params import TEST_PARAMS, TEST_PARAMS_K2
+from dct_cryptonets_tpu_torch.fhe.params import (TEST_PARAMS, TEST_PARAMS_K2,
+                                                 ExactRoundingConfig)
 
 pytestmark = pytest.mark.cuda
 
@@ -77,6 +78,27 @@ def test_cmux_kernels_match_plain(dev, k, N, drop, cross, M):
               for _ in range(2))
     assert torch.equal(K.combine_accumulate(o0, o1, sm, drop, cross),
                        K.combine_accumulate_plain(o0, o1, sm, drop, cross))
+
+
+# the noise audit's knobs: drop 1 to 4 leave 7 to 4 key limbs (K2 builds
+# C = (8 - drop) * rows strip rows, not a multiple of 8 at odd drops), and
+# cross 1 leaves the lowest byte scale without a pair; M crosses K3's tile
+# edges on both flagship lattices
+@pytest.mark.parametrize("M", [13, 129, 4097])
+@pytest.mark.parametrize("cross", [0, 1])
+@pytest.mark.parametrize("drop", [1, 3, 4])
+@pytest.mark.parametrize("k,N", [(1, 2048), (2, 512)], ids=["main", "aux"])
+def test_strips_and_external_product_at_knobs(dev, k, N, drop, cross, M):
+    acc, amt, bsk = inputs(drop + 2 * cross + M, k, M, N, 2, dev)
+    dbl = P._bigd_rows(bsk, k, 2, N, drop)
+    for k_major in (False, True):
+        assert torch.equal(K.build_bigd_strips(dbl, k_major),
+                           K.build_bigd_strips_plain(dbl, k_major))
+    strips = K.build_bigd_strips(dbl, k_major=True)
+    dB0, dB1 = K.rotate_decompose(acc, amt, 15, 2)
+    assert torch.equal(K.fused_external(dB0, dB1, strips, acc, drop, cross),
+                       K.fused_external_plain(dB0, dB1, strips, acc, drop,
+                                              cross))
 
 
 def assert_k1_equal(acc, amt, blog, levels, plane_major):
@@ -162,6 +184,50 @@ def test_bootstrap_kernel_engine_equals_plain(dev, par):
     dec = np.round(phase.astype(np.int64) / 2.0 ** 60).astype(np.int64)
     np.testing.assert_array_equal(dec, tables.cpu().numpy()[np.arange(40),
                                                             msgs])
+
+
+@pytest.mark.parametrize("par", [TEST_PARAMS, TEST_PARAMS_K2],
+                         ids=["k1", "k2"])
+@pytest.mark.parametrize("drop,cross", [(2, 1), (4, 1)])
+def test_bootstrap_kernel_engine_equals_plain_at_knobs(dev, par, drop, cross):
+    ck = KEYS.keygen(par, seed=3)
+    dsk = P.preprocess_server_keys(KEYS.make_server_keys(ck, seed=4), dev)
+    rng = np.random.default_rng(7 + drop)
+    msgs = rng.integers(0, 8, 40)
+    ct = T.from_u64(KEYS.encrypt_lwe(
+        ck, msgs.astype(np.uint64) << np.uint64(60), rng,
+        key=ck.big_lwe_key, noise_log2=par.glwe_noise_log2), dev)
+    tables = torch.as_tensor(rng.integers(-4, 4, (40, 8)), dtype=torch.int32,
+                             device=dev)
+    got = P.bootstrap_chunked(ct, tables, dsk, par, 60, 16, drop, cross)
+    assert torch.equal(got, P.bootstrap_chunked(ct, tables, dsk, par, 60, 16,
+                                                drop, cross, engine="plain"))
+
+
+# the extraction path of the audit policy: truncated keyswitches on both
+# hops, the lowest bits kept (keep_low) and the aux knob
+@pytest.mark.parametrize("drop,cross,fwd,back,keep", [
+    (2, 1, 5, 3, 1), (0, 0, 1, 1, 2), (4, 1, 6, 3, 0)])
+def test_clear_low_bits_kernel_engine_equals_plain_at_knobs(dev, drop, cross,
+                                                            fwd, back, keep):
+    ck = KEYS.keygen(TEST_PARAMS, seed=3)
+    cfg = ExactRoundingConfig(TEST_PARAMS_K2)
+    ak = P.preprocess_aux_keys(KEYS.make_aux_server_keys(
+        ck, cfg.aux, seed=4, back_base_log=cfg.back_base_log,
+        back_levels=cfg.back_levels), dev)
+    rng = np.random.default_rng(9 + keep)
+    n_in, shift = 11, 3
+    v = rng.integers(0, 1 << n_in, 37)
+    ct = T.from_u64(KEYS.encrypt_lwe(
+        ck, v.astype(np.uint64) << np.uint64(63 - n_in), rng,
+        key=ck.big_lwe_key, noise_log2=TEST_PARAMS.glwe_noise_log2), dev)
+    args = (ct, ak, cfg.aux, n_in, shift, cfg.back_base_log, cfg.back_levels,
+            16, drop, cross, fwd, back, keep)
+    K.reset_launch_counts()
+    got = P.clear_low_bits_chunked(*args)
+    assert K.launch_counts()["fused_external"] == (
+        3 * (shift - keep) * cfg.aux.lwe_dim)
+    assert torch.equal(got, P.clear_low_bits_chunked(*args, engine="plain"))
 
 
 @pytest.mark.parametrize("par", [TEST_PARAMS, TEST_PARAMS_K2],

@@ -36,6 +36,46 @@ def test_homomorphic_eval_simulate(capsys):
     assert "Done" in out
 
 
+def test_dump_circuit_holds_the_audit_summary(tmp_path, capsys):
+    """Under --drop_policy audit the dump is the circuit listing and the
+    noise audit's summary, both equal to the JAX package's for the same
+    calibration batch."""
+    from dct_cryptonets_tpu.fhe import compiler as JCOMP
+    from dct_cryptonets_tpu.fhe.noise_audit import audit_circuit
+    from dct_cryptonets_tpu.fhe.params import (default_exact_rounding,
+                                               params_for_precision)
+    from dct_cryptonets_tpu.models import resnet as JRES
+    from dct_cryptonets_tpu_torch.checkpoint import load_ckpt
+    from dct_cryptonets_tpu_torch.data.codec import CodecConfig
+    from dct_cryptonets_tpu_torch.homomorphic_eval import main, make_ingest
+
+    dump = tmp_path / "circuit.txt"
+    main(["--dataset", "synthetic", "--dct_status", "--model", "ResNet20qat",
+          "--channels", "24", "--filter_size", "4", "--image_size_dct", "16",
+          "--checkpoint_path", CKPT, "--test_subset", "1",
+          "--fhe_mode", "simulate", "--calib_batch_size", "8",
+          "--drop_policy", "audit", "--dump_circuit", str(dump),
+          "--device", "cpu"])
+    assert "Circuit dumped to" in capsys.readouterr().out
+    listing, summary = dump.read_text().rstrip("\n").split("\n\n")
+
+    cfg = CodecConfig(24, 4, 16)
+    trainset = PIPE.get_dataset("synthetic", None, True,
+                                image_size=cfg.pixel_size, num_classes=10)
+    calib = make_ingest(cfg, "cpu")(trainset.gather(np.arange(8))[0])
+    params, state = load_ckpt(CKPT)["state"]
+    circ = JCOMP.lower(params, state,
+                       JRES.build_spec("ResNet20qat", in_channels=24,
+                                       img_size=16, bit_width=4),
+                       n_bits=5, rounding_threshold_bits=6,
+                       calib_data=calib.numpy())
+    p = params_for_precision(6)
+    want = audit_circuit(circ, p, p_error=0.01, rounding_method="exact",
+                         exact_cfg=default_exact_rounding(p))
+    assert listing == circ.dump()
+    assert summary == want.summary()
+
+
 def test_unported_driver_paths_raise():
     from dct_cryptonets_tpu_torch.homomorphic_eval import main
     base = ["--dataset", "synthetic", "--dct_status", "--channels", "24",

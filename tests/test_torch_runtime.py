@@ -127,10 +127,8 @@ def test_rescale_circuit_matches_jax():
 
 def test_unported_modes_raise(tiny):
     jspec, spec, jp, js, p, s = tiny
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        R.compile_qat_model(p, s, spec, n_bits=3, rounding_threshold_bits=3,
-                            calib_absmax=2.0, tfhe_params=TEST_PARAMS,
-                            drop_policy="audit")
     _, tm = compile_both(jspec, spec, jp, js, p, s, "approximate")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tm.shard_over(None)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        tm.forward(XQ, fhe="execute", mesh=object())
