@@ -44,7 +44,21 @@ Phases, each printed with its elapsed seconds; any failure exits nonzero:
      more slips than p_error on this image: tools/audit_image.py, PERF.md);
      the audit's summary and knobs, the realized TLU slips per layer
      (failing above p_error), the class from execute, simulate and the
-     clear model, K1-K3 launched.
+     clear model, K1-K3 launched;
+  7. train on the card: one Adam step of ResNet20qat (24 ch x 16^2, batch
+     128 of the digits, augmentation off) on the CPU and on CUDA from the
+     same init, held to each other in float64 (1e-9) and in float32
+     (within 4x the CPU's own float32-vs-float64 distance), the float32
+     CUDA step run with cuDNN's TF32 flag on and failing if any backward
+     convolution runs with it on; the flagship recipe through
+     ``train.main`` (digits, --train_aug, batch 128, Adam 1e-3, 30 epochs:
+     300 steps; fails under 85 % best val top-1); the new checkpoint and
+     the committed flagship compiled through homomorphic_eval.prepare (QAT,
+     calibration on 64 digits, exact rounding, n_bits 5, threshold 6) with
+     clear and simulate top-1 over the CLI's 359 digits test images
+     (fails when simulate is more than 5 points under clear); one PTQ
+     (ResNet20) and one random-init (ResNet20qat) compile through the
+     same flow, each simulated on 4 images.  No CMUX kernel runs here.
 
 The second-to-last line is the kernels' JSON record, the last line the
 device record.
@@ -726,6 +740,205 @@ def phase_audited(s, dev, drop_limbs=0, enforce=True):
     return launches, am
 
 
+# the flagship training recipe (scripts/run_train.sh with --dataset digits
+# --train_aug), the recipe of checkpoints/digits_flagship
+TRAIN_ARGS = ["--dataset", "digits", "--dct_status", "--train_aug",
+              "--model", "ResNet20qat", "--channels", "24", "--filter_size",
+              "4", "--image_size_dct", "16", "--batch_size", "128",
+              "--test_batch_size", "256", "--lr", "0.001", "--optimizer",
+              "adam", "--stop_epoch", "30"]
+MIN_VAL_TOP1 = 85.0             # chance is 10 %; the JAX log reached 94.4
+MAX_SIM_DROP = 5.0              # points of simulate top-1 under clear
+# the JAX package's counts on the committed flagship over the 359 digits
+# test images (clear, simulate; ROUND5.md)
+JAX_FLAGSHIP = (330, 322)
+
+
+def train_steps(dev):
+    """One Adam step of ResNet20qat (24 ch x 16^2) from the same calibrated
+    init on the same digits batch of 128, augmentation off: in float64 on
+    the CPU and on ``dev``, and in float32 on both.  The float32 step on
+    ``dev`` runs with cuDNN's TF32 flag switched on, and a hook in every
+    convolution's backward reads the flag as the step runs it.  Returns
+    ({(dtype, device type): (loss, params, state, gradients)}, the flags
+    the hooks read, the number of convolutions, the caller's flag after
+    the step)."""
+    from dct_cryptonets_tpu_torch import train as TRAIN
+    from dct_cryptonets_tpu_torch.data import pipeline
+    from dct_cryptonets_tpu_torch.data.codec import CodecConfig, dct_ingest
+    from dct_cryptonets_tpu_torch.models.resnet import (
+        QATResNet, _QConv, build_spec, calibrate_scales, init_model)
+
+    spec = build_spec("ResNet20qat", in_channels=24, img_size=16)
+    ds = pipeline.get_dataset("digits", None, True, image_size=64)
+    x = dct_ingest(ds.images[:192], CodecConfig(24, 4, 16))
+    y = torch.as_tensor(ds.labels[64:192].astype(np.int64))
+    params, state = init_model(spec)
+    params = calibrate_scales(params, state, x[:64], spec)
+    cfg = TRAIN.parse_args("train", TRAIN_ARGS)
+    out, seen, convs, flag_after = {}, [], 0, None
+    cudnn = torch.backends.cudnn
+    for dt in (torch.float64, torch.float32):
+        for d in (torch.device("cpu"), dev):
+            model = QATResNet.from_params(params, state, spec).to(d, dt)
+            opt = TRAIN.make_optimizer(cfg, cfg.lr, model.parameters())
+            hooked = dt == torch.float32 and d.type == "cuda"
+            if hooked:
+                for m in model.modules():
+                    if isinstance(m, _QConv):
+                        convs += 1
+                        m.register_full_backward_hook(
+                            lambda *_: seen.append(cudnn.allow_tf32))
+            before = cudnn.allow_tf32
+            cudnn.allow_tf32 = hooked or before
+            try:
+                loss, _ = TRAIN.train_step(model, opt, cfg,
+                                           x[64:].to(d, dt), y.to(d),
+                                           torch.Generator())
+                if hooked:
+                    flag_after = cudnn.allow_tf32
+            finally:
+                cudnn.allow_tf32 = before
+            grads = [p.grad.cpu().numpy() for p in model.parameters()]
+            out[dt, d.type] = (float(loss), *model.to_params(), grads)
+    return out, seen, convs, flag_after
+
+
+def step_distance(a, b):
+    """(|loss difference|, max over BN state leaves and over gradients of
+    max|d| / max|b|, max |d| over the weights after the step, share of
+    weights with |d| > 1e-6)."""
+    from dct_cryptonets_tpu_torch.models.resnet import tree_leaves
+
+    def rel(pairs):
+        return max(float(np.max(np.abs(g - c)) / max(np.max(np.abs(c)),
+                                                     1e-30))
+                   for g, c in pairs)
+
+    dw = np.concatenate([np.abs(g - c).ravel().astype(np.float64)
+                         for g, c in zip(tree_leaves(a[1]),
+                                         tree_leaves(b[1]))])
+    return (abs(a[0] - b[0]), rel(zip(tree_leaves(a[2]), tree_leaves(b[2]))),
+            rel(zip(a[3], b[3])), float(dw.max()),
+            float((dw > 1e-6).mean()))
+
+
+def clear_and_simulate(ckpt, dev, model="ResNet20qat", n=359):
+    """The eval flow on the digits (``homomorphic_eval.prepare``:
+    calibration on the first 64 training images, exact rounding, n_bits 5,
+    threshold 6; no checkpoint draws a random model): clear and simulate
+    top-1 counts over the first ``n`` of its test images."""
+    from dct_cryptonets_tpu_torch import homomorphic_eval as HE
+
+    args = ["--dataset", "digits", "--dct_status", "--model", model,
+            "--channels", "24", "--filter_size", "4", "--image_size_dct",
+            "16", "--bit_width", "4", "--n_bits", "5",
+            "--rounding_threshold_bits", "6", "--rounding_method", "exact",
+            "--residual_mode", "fused", "--range_margin", "1.0",
+            "--test_subset", "359"]
+    if ckpt:
+        args += ["--checkpoint_path", ckpt]
+    s = HE.prepare(HE.parse_args("homomorphic_eval", args), dev)
+    idx = s.test_idx[:n]
+    clear, _ = HE.test_unencrypted(s.model, s.ingest, s.testset, idx, 64)
+    clf_w = np.asarray(s.params["classifier"]["w"])
+    clf_b = np.asarray(s.params["classifier"]["b"])
+    feats = np.concatenate([s.module.forward(s.ingest(
+        s.testset.gather(idx[i:i + 64])[0]).cpu().numpy(), fhe="simulate")
+        for i in range(0, len(idx), 64)])
+    if feats.shape != (len(idx), 64) or not np.all(np.isfinite(feats)):
+        raise AssertionError(f"bad simulate features {feats.shape}")
+    sim = int((np.argmax(feats @ clf_w + clf_b, 1)
+               == s.testset.labels[idx]).sum())
+    return round(clear.avg * len(idx) / 100), sim, len(idx), s
+
+
+def phase_train(dev):
+    """Phase 7: train on the card, then compile and simulate."""
+    import shutil
+
+    from dct_cryptonets_tpu_torch import train as TRAIN
+
+    t = time.time()
+    steps, seen, convs, flag_after = train_steps(dev)
+    f64 = step_distance(steps[torch.float64, "cuda"],
+                        steps[torch.float64, "cpu"])
+    f32 = step_distance(steps[torch.float32, "cuda"],
+                        steps[torch.float32, "cpu"])
+    ref = step_distance(steps[torch.float32, "cpu"],
+                        steps[torch.float64, "cpu"])
+    fmt = ("loss |d| {:.3e}, BN state max|d|/max {:.3e}, gradients "
+           "max|d|/max {:.3e}, weights max|d| {:.3e}, share over 1e-6 "
+           "{:.3e}").format
+    print(f"  one Adam step (digits batch 128, ResNet20qat 24x16^2), "
+          f"losses: float64 CPU {steps[torch.float64, 'cpu'][0]:.12f} / "
+          f"CUDA {steps[torch.float64, 'cuda'][0]:.12f}, float32 CPU "
+          f"{steps[torch.float32, 'cpu'][0]:.6f} / CUDA "
+          f"{steps[torch.float32, 'cuda'][0]:.6f}; {time.time() - t:.1f} s"
+          f"\n  float64, CUDA vs CPU: {fmt(*f64)} (tolerance 1e-9 on the "
+          f"loss, BN state and gradients; Adam's first step moves a weight "
+          f"by about the LR whatever its gradient's size, so a gradient "
+          f"within rounding of 0 may step either way: weights within "
+          f"2.1e-3, share over 1e-6 at most 1e-4)\n  float32, CUDA vs CPU: "
+          f"{fmt(*f32)}\n  float32 "
+          f"vs float64, both on the CPU: {fmt(*ref)} (a float32 rounding "
+          f"flips ~1e-5 of the 4-bit fake-quant roundings, and each flip "
+          f"moves the step; float32 is held to 4x this CPU spread and to "
+          f"1 % of the loss)", flush=True)
+    print(f"  float32 CUDA step with cuDNN's TF32 flag on: {len(seen)} "
+          f"backward convolutions of {convs} ran, {sum(seen)} of them with "
+          f"TF32 on; the flag after the step: {flag_after}", flush=True)
+    if len(seen) != convs or any(seen) or flag_after is not True:
+        raise AssertionError("a backward convolution of the train step ran "
+                             "with TF32 on, or the caller's flag was lost")
+    if max(f64[:3]) > 1e-9 or f64[3] > 2.1e-3 or f64[4] > 1e-4:
+        raise AssertionError("the float64 CUDA train step disagrees with "
+                             "the CPU's")
+    if f32[0] > max(4 * ref[0], 1e-6) or f32[0] > 0.01 * abs(
+            steps[torch.float32, "cpu"][0]):
+        raise AssertionError("the float32 CUDA train step is further from "
+                             "the CPU's than float32 rounding moves it")
+
+    ckdir = os.path.join(ROOT, "build", "phase7_train")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    t = time.time()
+    res = TRAIN.main(TRAIN_ARGS + ["--checkpoint_dir", ckdir])
+    ep = res["epoch_s"]
+    print(f"  recipe: {res['epochs']} epochs, {res['steps']} steps in "
+          f"{time.time() - t:.1f} s; s per epoch: first {ep[0]:.2f}, "
+          f"median of the rest {float(np.median(ep[1:] or ep)):.2f}; "
+          f"steps per s {res['steps'] / sum(ep):.1f}; best val top-1 "
+          f"{res['best_val']:.3f} %; clear test top-1 "
+          f"{res['test_top1']:.3f} % ({res['test_correct']}/"
+          f"{res['test_total']})", flush=True)
+    if res["best_val"] < MIN_VAL_TOP1:
+        raise AssertionError(f"best val top-1 {res['best_val']:.2f} % is "
+                             f"under {MIN_VAL_TOP1} %")
+
+    for name, ckpt in (("new checkpoint", os.path.join(ckdir, "best.tar")),
+                       ("committed flagship", CKPT)):
+        t = time.time()
+        clear, sim, n, s = clear_and_simulate(ckpt, dev)
+        jax_note = ("; JAX package: clear {}/359, simulate {}/359".format(
+            *JAX_FLAGSHIP) if ckpt == CKPT else "")
+        print(f"  {name}: clear {clear}/{n} ({100 * clear / n:.2f} %), "
+              f"simulate {sim}/{n} ({100 * sim / n:.2f} %){jax_note}; "
+              f"{s.module.circuit.num_pbs} PBS per image, max bit-width "
+              f"{s.module.maximum_integer_bit_width()}; "
+              f"{time.time() - t:.1f} s", flush=True)
+        if 100 * (clear - sim) / n > MAX_SIM_DROP:
+            raise AssertionError(f"{name}: simulate is more than "
+                                 f"{MAX_SIM_DROP} points under clear")
+
+    for model, kind in (("ResNet20", "PTQ"), ("ResNet20qat", "random-init")):
+        t = time.time()
+        clear, sim, n, s = clear_and_simulate(None, dev, model, n=4)
+        print(f"  {kind} {model}: compiled {s.module.circuit.num_pbs} PBS "
+              f"per image, max bit-width "
+              f"{s.module.maximum_integer_bit_width()}; clear {clear}/{n}, "
+              f"simulate {sim}/{n}; {time.time() - t:.1f} s", flush=True)
+
+
 def main():
     with Phase("0 device"):
         if not torch.cuda.is_available():
@@ -764,6 +977,11 @@ def main():
         launches = phase_slice(s, dev)
     with Phase("6 audited flagship image"):
         audited_launches, _ = phase_audited(s, dev)
+    with Phase("7 train on the card"):
+        K.reset_launch_counts()
+        phase_train(dev)
+        train_launches = K.launch_counts()
+        print(f"  kernel launches in phase 7: {train_launches}", flush=True)
 
     def timing(name, lat):
         ms, plain, lib, M, drop, cross = record[name][lat]
@@ -777,7 +995,8 @@ def main():
     for name, (src, replaces) in KERNELS.items():
         by_path = {"image, drop_policy none": launches[name],
                    "image, drop_policy audit": audited_launches[name],
-                   "s2d chunks": s2d_launches[name]}
+                   "s2d chunks": s2d_launches[name],
+                   "training, compile and simulate": train_launches[name]}
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": replaces, "launches": sum(by_path.values()),
                  "launches_by_path": by_path,

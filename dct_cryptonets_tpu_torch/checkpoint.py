@@ -1,5 +1,5 @@
-"""Checkpoint loading without JAX, counterpart of
-``dct_cryptonets_tpu.train.load_ckpt``.
+"""Checkpoints without JAX, counterpart of ``dct_cryptonets_tpu.train``'s
+``save_ckpt`` and ``load_ckpt``.
 
 A JAX training checkpoint is a pickle of ``{"epoch", "state": (params,
 state), "prec1", "prec5", "optimizer"}`` whose arrays are numpy.  Its
@@ -9,9 +9,18 @@ restricted ``Unpickler``: numpy's reconstruction globals are allowed,
 optax's classes become inert tuple stubs, and any other global is refused.
 The returned ``(params, state)`` pytree is what both the port's model
 (``models.resnet.QATResNet``) and compiler (``fhe.compiler.lower``) read.
+
+:func:`save_ckpt` writes the same payload.  Its ``optimizer`` entry is a
+``torch.optim`` state dict with every tensor turned into a numpy array
+(:func:`optimizer_state_to_numpy`), so a plain ``pickle.load`` (the JAX
+package's ``load_ckpt``) and this module's restricted one both read it,
+and a resume takes it back from :func:`load_ckpt`.
 """
 import importlib
 import pickle
+
+import numpy as np
+import torch
 
 _NUMPY_PREFIXES = ("numpy.", "numpy")
 
@@ -21,6 +30,10 @@ class _OptaxStub(tuple):
 
     def __new__(cls, *args, **kwargs):
         return super().__new__(cls, tuple(args) + tuple(kwargs.values()))
+
+    def __reduce__(self):
+        # pickles again as a plain tuple, with no import of optax
+        return tuple, (tuple(self),)
 
 
 class _Unpickler(pickle.Unpickler):
@@ -43,9 +56,40 @@ class _Unpickler(pickle.Unpickler):
 
 
 def load_ckpt(path: str) -> dict:
-    """Load a JAX training checkpoint: returns a dict with ``epoch``,
-    ``prec1``, ``prec5`` (when present) and ``state`` = (params, state)
-    numpy pytree.  The optimizer state is dropped."""
+    """Load a training checkpoint of either package: returns its payload,
+    a dict with ``epoch``, ``prec1``, ``prec5`` (when present), ``state`` =
+    (params, state) numpy pytree and ``optimizer`` as it was saved (a JAX
+    checkpoint's optax state as tuple stubs)."""
     with open(path, "rb") as fh:
-        ck = _Unpickler(fh).load()
-    return {k: v for k, v in ck.items() if k != "optimizer"}
+        return _Unpickler(fh).load()
+
+
+def optimizer_state_to_numpy(obj):
+    """A ``torch.optim`` state dict with its tensors as numpy arrays."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().numpy().copy()
+    if isinstance(obj, dict):
+        return {k: optimizer_state_to_numpy(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(optimizer_state_to_numpy(v) for v in obj)
+    return obj
+
+
+def optimizer_state_from_numpy(obj):
+    """Inverse of :func:`optimizer_state_to_numpy`."""
+    if isinstance(obj, np.ndarray):
+        return torch.from_numpy(obj.copy())
+    if isinstance(obj, dict):
+        return {k: optimizer_state_from_numpy(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(optimizer_state_from_numpy(v) for v in obj)
+    return obj
+
+
+def save_ckpt(path, epoch, params, state, opt_state, prec1, prec5):
+    """Write a checkpoint with the JAX trainer's payload keys; ``params``
+    and ``state`` are numpy pytrees, ``opt_state`` a numpy state dict."""
+    payload = {"epoch": epoch, "state": (params, state), "prec1": prec1,
+               "prec5": prec5, "optimizer": opt_state}
+    with open(path, "wb") as f:
+        pickle.dump(payload, f)

@@ -1,6 +1,7 @@
 """CLI configuration, the port's copy of ``dct_cryptonets_tpu.config``:
 the same flags and defaults (flag-for-flag parity with the reference
-argparse profiles, reference io_utils.py:13-90), plus ``--device``.
+argparse profiles, reference io_utils.py:13-90) and checkpoint directory
+names, plus ``--device``.
 
 ``--device`` (default ``cuda``) names where the port runs; the CPU runs
 only when asked for (``--device cpu``).
@@ -130,3 +131,18 @@ def parse_args(script: str, argv=None):
     else:
         raise ValueError("Unknown script")
     return parser.parse_args(argv)
+
+
+def checkpoint_dir_for(params) -> str:
+    """Config-derived checkpoint directory naming (reference train.py:190-203)."""
+    if params.checkpoint_dir.strip():
+        return params.checkpoint_dir
+    if params.dct_status:
+        return (f"{params.save_path}/checkpoints/{params.dataset}/"
+                f"{params.model}_dct/filter_{params.filter_size}"
+                f"__pattern_{params.dct_pattern}"
+                f"__input_{params.channels}_{params.image_size_dct}_{params.image_size_dct}"
+                f"__bitwidth_{params.bit_width}")
+    return (f"{params.save_path}/checkpoints/{params.dataset}/{params.model}/"
+            f"input_{params.channels}_{params.image_size}_{params.image_size}"
+            f"__bitwidth_{params.bit_width}")

@@ -1,6 +1,6 @@
-"""Batched DCT ingest, eval path; counterpart of
-``dct_cryptonets_tpu.data.codec`` (``CodecConfig``, ``dct_ingest`` and
-what it calls).
+"""Batched DCT and RGB ingest, counterpart of
+``dct_cryptonets_tpu.data.codec`` (``CodecConfig``, the eval and train
+paths and what they call).
 
     uint8 RGB (B, H, W, 3)
       -> resize(1.15 * fs * S) -> center-crop(fs * S)   (cv2 fixed point)
@@ -13,7 +13,15 @@ what it calls).
 
 The integer pixel stages are exact; the float DCT and coefficient resize
 agree with the JAX package to float32 rounding.
+
+The train path (``dct_ingest_train``, ``rgb_ingest_train``) is
+RandomResizedCrop -> brightness / contrast / saturation jitter -> hflip ->
+round, then the DCT (or RGB normalization).  Each random stage is split
+into a draw (:func:`draw_train`, from a ``torch.Generator`` on the CPU, so
+the CPU and the GPU see the same draws) and a deterministic function of
+the draws (:func:`augment`).
 """
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -174,7 +182,175 @@ def _eval_resize_crop(images_u8: torch.Tensor, P: int) -> torch.Tensor:
 def dct_ingest(images_u8, cfg: CodecConfig) -> torch.Tensor:
     """Eval-path ingest: uint8 RGB (B, H, W, 3) (tensor or numpy) ->
     float32 (B, S, S, C) on the input tensor's device."""
-    x = torch.as_tensor(np.asarray(images_u8)
-                        if not isinstance(images_u8, torch.Tensor)
-                        else images_u8)
-    return dct_from_pixels(_eval_resize_crop(x, cfg.pixel_size), cfg)
+    return dct_from_pixels(_eval_resize_crop(_as_tensor(images_u8),
+                                             cfg.pixel_size), cfg)
+
+
+def _as_tensor(images) -> torch.Tensor:
+    return images if isinstance(images, torch.Tensor) else \
+        torch.as_tensor(np.asarray(images))
+
+
+# ---------------------------------------------------------------------------
+# train-path augmentation
+
+
+@dataclass(frozen=True)
+class TrainDraws:
+    """Per-image random parameters of the train path (CPU tensors):
+    ``crop`` = (h, w, top, left), each (B,) float32 in input pixels;
+    ``jitter`` (B, 3) float32 brightness, contrast and color factors;
+    ``flip`` (B,) bool."""
+    crop: tuple
+    jitter: torch.Tensor
+    flip: torch.Tensor
+
+
+def draw_train(generator: torch.Generator, B: int, H: int, W: int,
+               jitter: float = 0.4) -> TrainDraws:
+    """The JAX ``_random_resized_crop``'s box (area a share in [0.08, 1]
+    of the image, log-uniform aspect in [3/4, 4/3]), ``_image_jitter``'s
+    factors ``1 + jitter * U(-1, 1)`` and a fair flip per image."""
+    scale, ratio = (0.08, 1.0), (3.0 / 4.0, 4.0 / 3.0)
+    u = torch.rand((4, B), generator=generator)
+    area = (u[0] * (scale[1] - scale[0]) + scale[0]) * (H * W)
+    lo, hi = math.log(ratio[0]), math.log(ratio[1])
+    r = torch.exp(u[1] * (hi - lo) + lo)
+    w = torch.clamp(torch.sqrt(area * r), 1.0, W)
+    h = torch.clamp(torch.sqrt(area / r), 1.0, H)
+    crop = (h, w, u[2] * (H - h), u[3] * (W - w))
+    f = 1.0 + jitter * (torch.rand((B, 3), generator=generator) * 2 - 1)
+    flip = torch.rand((B,), generator=generator) < 0.5
+    return TrainDraws(crop, f, flip)
+
+
+def _crop_weights(in_size: int, out_size: int, scale: torch.Tensor,
+                  translation: torch.Tensor) -> torch.Tensor:
+    """(B, out_size, in_size) weights of ``jax.image.scale_and_translate``
+    (method "linear", antialias off) along one axis: the triangle kernel
+    at the sample positions, each row normalized, a row zeroed where its
+    sample falls outside the input."""
+    dev = scale.device
+    inv = (torch.ones_like(scale) / scale)[:, None]
+    o = torch.arange(out_size, dtype=torch.float32, device=dev)
+    sample = (o + 0.5) * inv - translation[:, None] * inv - 0.5   # (B, P)
+    i = torch.arange(in_size, dtype=torch.float32, device=dev)
+    wts = torch.clamp(1 - torch.abs(sample[:, :, None] - i), min=0)
+    total = wts.sum(dim=2, keepdim=True)
+    wts = torch.where(torch.abs(total) > 1000.0 * float(np.finfo(
+        np.float32).eps), wts / torch.where(total != 0, total, 1.0),
+        torch.zeros_like(wts))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return torch.where(inside[:, :, None], wts, torch.zeros_like(wts))
+
+
+def resized_crop(images: torch.Tensor, h, w, top, left,
+                 out_size: int) -> torch.Tensor:
+    """Crop the box (h, w, top, left) of each image and resize it to
+    (out_size, out_size): one batched weight matrix per axis, as the JAX
+    ``_random_resized_crop`` does through ``scale_and_translate``.
+    (B, H, W, C) -> float32 (B, out_size, out_size, C)."""
+    B, H, W, C = images.shape
+    dev = images.device
+    h, w, top, left = (t.to(dev, torch.float32) for t in (h, w, top, left))
+    p = torch.full_like(h, out_size)
+    sy, sx = p / h, p / w
+    wy = _crop_weights(H, out_size, sy, -top * sy)
+    wx = _crop_weights(W, out_size, sx, -left * sx)
+    x = torch.einsum("bph,bhwc->bpwc", wy, images.to(torch.float32))
+    return torch.einsum("bqw,bpwc->bpqc", wx, x)
+
+
+def _gray(img: torch.Tensor) -> torch.Tensor:
+    return (0.299 * img[..., 0] + 0.587 * img[..., 1]
+            + 0.114 * img[..., 2])[..., None]
+
+
+def image_jitter(x: torch.Tensor, factors: torch.Tensor) -> torch.Tensor:
+    """Brightness, contrast, then saturation ("Color"), each measuring its
+    gray statistics on the previous stage's image, as the JAX
+    ``_image_jitter``.  x: float (B, H, W, 3); factors (B, 3)."""
+    fb, fc, fs = (factors[:, i].to(x.device).view(-1, 1, 1, 1)
+                  for i in range(3))
+    x = x * fb
+    mean = _gray(x).mean(dim=(1, 2), keepdim=True)
+    x = mean + (x - mean) * fc
+    gray = _gray(x)
+    x = gray + (x - gray) * fs
+    return torch.clamp(x, 0, 255)
+
+
+def augment(images_u8: torch.Tensor, draws: TrainDraws,
+            out_size: int) -> torch.Tensor:
+    """The train path's pixel stages for given draws: resized crop ->
+    jitter -> hflip -> round and clip.  Returns float32 (B, P, P, 3)."""
+    x = resized_crop(images_u8, *draws.crop, out_size)
+    x = image_jitter(x, draws.jitter)
+    flip = draws.flip.to(x.device).view(-1, 1, 1, 1)
+    x = torch.where(flip, x.flip(2), x)
+    return torch.clamp(torch.round(x), 0, 255)
+
+
+def dct_ingest_train(generator: torch.Generator, images_u8,
+                     cfg: CodecConfig) -> torch.Tensor:
+    """Train-path ingest: RandomResizedCrop(P) -> jitter -> hflip -> DCT
+    (reference datamgr.py:150-191), on the images' device."""
+    x = _as_tensor(images_u8)
+    draws = draw_train(generator, *x.shape[:3])
+    return dct_from_pixels(augment(x, draws, cfg.pixel_size), cfg)
+
+
+# RGB (non-DCT) normalization stats: CIFAR stats + 0.1 jitter for cifar10
+# RGB, ImageNet stats + 0.4 jitter otherwise (reference
+# homomorphic_eval.py:100-111, datamgr.py:26-42)
+RGB_STATS = {
+    "cifar10": ((0.4914, 0.4822, 0.4465), (0.2023, 0.1994, 0.2010)),
+    "default": ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225)),
+}
+
+
+def rgb_jitter_param(dataset: str) -> float:
+    """0.1 for cifar10 RGB, 0.4 (the datamgr default) otherwise."""
+    return 0.1 if dataset == "cifar10" else 0.4
+
+
+def rgb_normalize(x: torch.Tensor, dataset: str = "cifar10") -> torch.Tensor:
+    """ToTensor + Normalize for the RGB path; input is 0..255."""
+    mean, std = RGB_STATS.get(dataset, RGB_STATS["default"])
+    dev = x.device
+    mean = torch.tensor(mean, dtype=torch.float32, device=dev) * 255.0
+    std = torch.tensor(std, dtype=torch.float32, device=dev) * 255.0
+    return (x.to(torch.float32) - mean) / std
+
+
+def rgb_ingest(images_u8, image_size: int,
+               dataset: str = "cifar10") -> torch.Tensor:
+    """RGB eval-path ingest: Resize(1.15x) -> CenterCrop -> Normalize
+    (reference datamgr.py:82-90)."""
+    big = int(image_size * 1.15)
+    x = resize_bilinear(_as_tensor(images_u8).to(torch.float32), big, big)
+    return rgb_normalize(center_crop(x, image_size), dataset)
+
+
+def rgb_ingest_train(generator: torch.Generator, images_u8, image_size: int,
+                     dataset: str = "cifar10") -> torch.Tensor:
+    """RGB train-path ingest: RandomResizedCrop -> jitter (per dataset) ->
+    hflip -> Normalize (reference datamgr.py:69-80)."""
+    x = _as_tensor(images_u8)
+    draws = draw_train(generator, *x.shape[:3],
+                       jitter=rgb_jitter_param(dataset))
+    return rgb_normalize(augment(x, draws, image_size), dataset)
+
+
+def make_ingest(codec_cfg: CodecConfig | None, device, image_size: int = 32,
+                dataset: str = "cifar10"):
+    """Eval-path ingest closure: uint8 RGB batch -> float32 model input on
+    ``device``: the DCT codec when ``codec_cfg`` is given, else the RGB
+    transform (Resize 1.15x, CenterCrop, Normalize with per-dataset
+    stats)."""
+    def _in(images):
+        x = torch.as_tensor(np.asarray(images), device=device)
+        if codec_cfg is None:
+            return rgb_ingest(x, image_size, dataset)
+        return dct_ingest(x, codec_cfg)
+    return _in

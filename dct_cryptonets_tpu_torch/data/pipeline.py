@@ -1,14 +1,16 @@
 """Datasets and batching, counterpart of ``dct_cryptonets_tpu.data.pipeline``
-(eval path: synthetic data, seeded splits, batch iteration).
+(synthetic data, the handwritten digits, seeded splits, batch iteration).
 
 Datasets are host-side uint8 image arrays; batches are assembled with numpy
 and the codec (``data.codec.dct_ingest``) runs on the batch's device.  The
 split reproduces sklearn's ``train_test_split`` (``ShuffleSplit``) index
 permutation with ``np.random.RandomState``, so both packages pick the same
-subsets without sklearn.  The CIFAR-10, digits, ImageFolder and JSON
-manifest loaders are not ported yet.
+subsets without sklearn.  The CIFAR-10, ImageFolder and JSON manifest
+loaders are not ported yet.
 """
+import gzip
 import math
+import os
 
 import numpy as np
 
@@ -48,6 +50,34 @@ def load_synthetic(num: int = 2048, image_size: int = 32,
     return ArrayDataset(x, y)
 
 
+# UCI "Optical Recognition of Handwritten Digits" (1,797 8x8 images, 64
+# pixel columns and the label), the copy shipped by scikit-learn as
+# sklearn/datasets/data/digits.csv.gz
+DIGITS_CSV = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "digits.csv.gz")
+
+
+def load_digits_dataset(train: bool = True, image_size: int = 32
+                        ) -> ArrayDataset:
+    """The handwritten digits upscaled to ``image_size`` RGB, split 80/20
+    as the JAX package splits them (the same images and labels).  Parsed
+    as ``sklearn.datasets.load_digits`` parses its CSV, without sklearn."""
+    from scipy.ndimage import zoom
+    with gzip.open(DIGITS_CSV, mode="rt", encoding="utf-8") as fh:
+        data = np.loadtxt(fh, delimiter=",")
+    images = data[:, :-1].reshape(-1, 8, 8)
+    target = data[:, -1].astype(int)
+    x8 = (images / 16.0 * 255.0).astype(np.float64)
+    z = image_size / 8
+    x = np.stack([zoom(im, (z, z), order=1) for im in x8])
+    x = np.clip(x, 0, 255).astype(np.uint8)[..., None].repeat(3, axis=-1)
+    y = target.astype(np.int32)
+    tr_idx, te_idx = train_val_split(len(y), 0.2)
+    idx = tr_idx if train else te_idx
+    return ArrayDataset(np.ascontiguousarray(x[idx]), y[idx],
+                        [str(i) for i in range(10)])
+
+
 def train_val_split(n: int, test_size, random_state: int = 42):
     """(train_idx, test_idx) of sklearn's ``train_test_split(np.arange(n),
     test_size=test_size, random_state=random_state)``: one
@@ -82,5 +112,8 @@ def get_dataset(name: str, path: str | None, train: bool, *,
         return load_synthetic(synthetic_size if train else synthetic_size // 4,
                               image_size, num_classes,
                               seed=0 if train else 1)
+    if name == "digits":
+        return load_digits_dataset(train, image_size)
     raise NotImplementedError(
-        f"dataset {name!r} is not yet ported; use --dataset synthetic")
+        f"dataset {name!r} is not yet ported; use --dataset synthetic or "
+        "digits")

@@ -464,3 +464,23 @@ def compile_qat_model(params, state, spec, *, n_bits: int = 5,
     return CompiledModule(circ, p, pbs_batch=pbs_batch,
                           rounding_method=method, drop_policy=drop_policy,
                           p_error=p_error, device=device)
+
+
+def compile_ptq_model(params, state, spec, calib_data, *, n_bits: int = 5,
+                      rounding_threshold_bits=6,
+                      tfhe_params: TFHEParams | None = None,
+                      pbs_batch: int = 2048, device=None) -> CompiledModule:
+    """Post-training quantization compile of a trained float model (the
+    reference's path for checkpoints without 'qat' in the model name):
+    weights per-tensor quantized to ``n_bits``, activation scales
+    calibrated on ``calib_data`` with running-stats BatchNorm
+    (``models.resnet.quantize_float_model``), then the QAT compile."""
+    from ..models.resnet import quantize_float_model
+    x = calib_data if isinstance(calib_data, torch.Tensor) else \
+        torch.as_tensor(np.asarray(calib_data, np.float32))
+    params_q, spec_q = quantize_float_model(params, state, x, spec,
+                                            n_bits=n_bits)
+    return compile_qat_model(params_q, state, spec_q, n_bits=n_bits,
+                             rounding_threshold_bits=rounding_threshold_bits,
+                             calib_data=calib_data, tfhe_params=tfhe_params,
+                             pbs_batch=pbs_batch, device=device)

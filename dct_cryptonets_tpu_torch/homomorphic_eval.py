@@ -29,9 +29,12 @@ The encrypted image on the card, with the realized-slip audit:
       checkpoints/digits_flagship/best.tar --test_subset 1 \
       --drop_policy audit --fhe_mode execute --slip_audit
 
-Not yet ported: random-weight models (a checkpoint is required), the PTQ
-compile, RGB ingest, datasets other than ``synthetic``, ``--mesh`` and
-``--profile_dir``.
+Without ``--checkpoint_path`` the model is drawn at random (seed 0),
+calibrated and given one train-mode forward for its BatchNorm statistics,
+as the JAX package's CLI does.  A model without "qat" in its name (ResNet20,
+ResNet18) is compiled by post-training quantization
+(``compile_ptq_model``).  Not yet ported: the CIFAR-10, ImageNet and
+folder or manifest datasets, ``--mesh`` and ``--profile_dir``.
 """
 import json
 import os
@@ -45,23 +48,23 @@ import torch
 from .checkpoint import load_ckpt
 from .config import parse_args
 from .data import pipeline
-from .data.codec import CodecConfig, dct_ingest
-from .fhe.runtime import CompiledModule, compile_qat_model, default_device
-from .models.resnet import ModelSpec, QATResNet, build_spec
+from .data.codec import CodecConfig, make_ingest
+from .fhe.runtime import (CompiledModule, compile_ptq_model,
+                          compile_qat_model, default_device)
+from .models.resnet import (ModelSpec, QATResNet, build_spec,
+                            calibrate_scales, init_model, model_summary)
 from .utils import AverageMeter, topk_accuracy
 
 
-def make_ingest(codec_cfg: CodecConfig | None, device):
-    """Eval-path ingest closure: uint8 RGB batch -> float32 DCT input on
-    ``device``."""
-    if codec_cfg is None:
-        raise NotImplementedError("RGB ingest is not yet ported; pass "
-                                  "--dct_status")
-
-    def _in(images):
-        return dct_ingest(torch.as_tensor(np.asarray(images), device=device),
-                          codec_cfg)
-    return _in
+@torch.no_grad()
+def calibrate_random_init(params, state, x, spec: ModelSpec):
+    """The CLI's random-weight model: activation scales calibrated on
+    ``x``, then one train-mode forward on ``x`` for the BatchNorm running
+    statistics.  Returns (params, state)."""
+    params = calibrate_scales(params, state, x, spec)
+    model = QATResNet(params, state, spec).to(x.device).train()
+    model(x)
+    return params, model.to_params()[1]
 
 
 @torch.no_grad()
@@ -160,14 +163,11 @@ def prepare(cfg, device=None) -> Session:
     in_ch = cfg.channels if cfg.dct_status else 3
     spec = build_spec(cfg.model, in_channels=in_ch, img_size=img,
                       num_classes=cfg.num_classes, bit_width=cfg.bit_width)
-    if not spec.quantized:
-        raise NotImplementedError("the PTQ compile (non-qat models) is not "
-                                  "yet ported")
     codec_cfg = CodecConfig(cfg.channels, cfg.filter_size, cfg.image_size_dct,
                             cfg.dct_pattern) if cfg.dct_status else None
-    ingest = make_ingest(codec_cfg, device)
+    ingest = make_ingest(codec_cfg, device, cfg.image_size, cfg.dataset)
 
-    pix = codec_cfg.pixel_size
+    pix = codec_cfg.pixel_size if codec_cfg else cfg.image_size
     trainset = pipeline.get_dataset(cfg.dataset, cfg.dataset_path, True,
                                     image_size=pix,
                                     num_classes=cfg.num_classes)
@@ -179,28 +179,42 @@ def prepare(cfg, device=None) -> Session:
     _, test_idx = pipeline.train_val_split(
         len(testset), min(cfg.test_subset, len(testset) - 1))
 
-    if not (cfg.checkpoint_path and os.path.exists(cfg.checkpoint_path)):
-        raise NotImplementedError(
-            "random-weight models are not yet ported; pass --checkpoint_path")
-    ck = load_ckpt(cfg.checkpoint_path)
-    params, state = ck["state"]
-    print(f"Loaded checkpoint {cfg.checkpoint_path} "
-          f"({ck['prec1']:.3f}% Top-1 @ epoch {ck['epoch']})")
-    model = QATResNet(params, state, spec).to(device).eval()
-
-    print("\nCompiling FHE Model (QAT)...")
+    # the first calibration batch drives the scales of a random model
+    # and the compiler's accumulator ranges
     calib_imgs = trainset.gather(
         np.arange(min(cfg.calib_batch_size, len(trainset))))[0]
     calib_x = ingest(calib_imgs)
+    if cfg.checkpoint_path and os.path.exists(cfg.checkpoint_path):
+        ck = load_ckpt(cfg.checkpoint_path)
+        params, state = ck["state"]
+        print(f"Loaded checkpoint {cfg.checkpoint_path} "
+              f"({ck['prec1']:.3f}% Top-1 @ epoch {ck['epoch']})")
+    else:
+        print("WARNING: No checkpoint loaded. Using random weights "
+              "(for testing only)")
+        params, state = calibrate_random_init(
+            *init_model(spec, torch.Generator().manual_seed(0)), calib_x,
+            spec)
+    print("\n" + model_summary(spec, params))
+    model = QATResNet(params, state, spec).to(device).eval()
+
+    quantization_type = "QAT" if spec.quantized else "PTQ"
+    print(f"\nCompiling FHE Model ({quantization_type})...")
     t = time.time()
-    module = compile_qat_model(
-        params, state, spec, n_bits=cfg.n_bits,
-        rounding_threshold_bits={"n_bits": cfg.rounding_threshold_bits,
-                                 "method": cfg.rounding_method},
-        calib_data=calib_x, pbs_batch=cfg.pbs_batch,
-        drop_policy=cfg.drop_policy, p_error=cfg.p_error,
-        range_margin=cfg.range_margin, residual_mode=cfg.residual_mode,
-        device=device)
+    if spec.quantized:
+        module = compile_qat_model(
+            params, state, spec, n_bits=cfg.n_bits,
+            rounding_threshold_bits={"n_bits": cfg.rounding_threshold_bits,
+                                     "method": cfg.rounding_method},
+            calib_data=calib_x, pbs_batch=cfg.pbs_batch,
+            drop_policy=cfg.drop_policy, p_error=cfg.p_error,
+            range_margin=cfg.range_margin, residual_mode=cfg.residual_mode,
+            device=device)
+    else:
+        module = compile_ptq_model(
+            params, state, spec, calib_x, n_bits=cfg.n_bits,
+            rounding_threshold_bits=cfg.rounding_threshold_bits,
+            pbs_batch=cfg.pbs_batch, device=device)
     print(f"Time for FHE compilation {time.time()-t:.2f}")
     return Session(spec, ingest, trainset, testset, val_idx, test_idx,
                    params, state, model, module)
@@ -210,7 +224,6 @@ def main(argv=None):
     cfg = parse_args("homomorphic_eval", argv)
     s = prepare(cfg)
     module = s.module
-    print("\n" + str(s.model))
 
     bitwidth = module.maximum_integer_bit_width()
     print(f"Max bit-width: {bitwidth} bits" +

@@ -1,0 +1,308 @@
+"""Training entry point, counterpart of ``dct_cryptonets_tpu.train`` (the
+reference trainer's behavior, reference train.py:31-421): config-derived
+checkpoint dirs, adam/adamw/sgd with optax's semantics, a step-decay
+schedule, gradient clipping, per-epoch validation, periodic and best
+checkpoints, a JSONL log, early stopping and a final test of the best
+model.
+
+The model is ``models.resnet.QATResNet`` in train mode; the ingest
+(augmentation and DCT) runs on the batch's device.  Convolutions run in
+full float32 in the forward and the backward.  Checkpoints are pickles of
+numpy pytrees with the JAX trainer's payload keys, so either package reads
+the other's weights; the optimizer state resumes only in the package that
+wrote it.
+
+Run (the flagship recipe; on the GPU unless ``--device cpu``):
+  python -m dct_cryptonets_tpu_torch.train --dataset digits --dct_status \\
+      --train_aug --model ResNet20qat --channels 24 --filter_size 4 \\
+      --image_size_dct 16 --batch_size 128 --test_batch_size 256 \\
+      --lr 0.001 --optimizer adam --stop_epoch 30
+
+Not yet ported: ``--mesh``, ``--profile_dir`` and the example and
+confusion plots (the JAX package's ``viz.py``).
+"""
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+from .checkpoint import (load_ckpt, optimizer_state_from_numpy,
+                         optimizer_state_to_numpy, save_ckpt)
+from .config import checkpoint_dir_for, parse_args
+from .data import pipeline
+from .data.codec import CodecConfig, dct_ingest_train, rgb_ingest_train
+from .data.codec import make_ingest as make_eval_ingest
+from .fhe.runtime import default_device
+from .ops.quant import true_div
+from .models.resnet import (QATResNet, build_spec, calibrate_scales,
+                            fp32_convolutions, init_model, model_summary,
+                            tree_leaves)
+from .utils import AverageMeter, EarlyStopper, step_decay_lr, topk_accuracy
+
+
+def make_optimizer(cfg, lr, params) -> torch.optim.Optimizer:
+    """The JAX trainer's optax chain as a ``torch.optim`` optimizer: Adam
+    with ``weight_decay`` as an L2 term on the gradient, AdamW with
+    decoupled decay, SGD with momentum and no decay.  Clipping comes first
+    and is :func:`clip_gradients`' job."""
+    params = list(params)
+    if cfg.optimizer == "adam":
+        return torch.optim.Adam(params, lr=lr,
+                                weight_decay=cfg.weight_decay or 0.0)
+    if cfg.optimizer == "adamw":
+        return torch.optim.AdamW(params, lr=lr,
+                                 weight_decay=cfg.weight_decay)
+    return torch.optim.SGD(params, lr=lr, momentum=cfg.momentum)
+
+
+@torch.no_grad()
+def clip_gradients(params, cfg):
+    """optax ``clip`` (an elementwise clamp) when ``grad_clip_value`` is
+    set, else ``clip_by_global_norm``: every gradient times
+    ``max_norm / norm`` when the global norm reaches ``max_norm``."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if cfg.grad_clip_value is not None:
+        for g in grads:
+            g.clamp_(-cfg.grad_clip_value, cfg.grad_clip_value)
+    elif cfg.grad_clip_norm is not None:
+        max_norm = cfg.grad_clip_norm
+        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        for g in grads:
+            g.copy_(torch.where(norm < max_norm, g, (g / norm) * max_norm))
+
+
+def set_lr(opt: torch.optim.Optimizer, lr: float):
+    for group in opt.param_groups:
+        group["lr"] = lr
+
+
+def cross_entropy(logits, labels):
+    logp = torch.log_softmax(logits, dim=1)
+    return -torch.mean(torch.gather(logp, 1, labels[:, None]))
+
+
+def make_ingest(cfg, codec_cfg: CodecConfig | None, device):
+    """``ingest(images, train, generator)``: the train path (augmented when
+    ``--train_aug``) or the codec's eval path, on ``device``."""
+    eval_ingest = make_eval_ingest(codec_cfg, device, cfg.image_size,
+                                   cfg.dataset)
+
+    def ingest(images, train=False, generator=None):
+        if not (train and cfg.train_aug):
+            return eval_ingest(images)
+        x = torch.as_tensor(np.asarray(images), device=device)
+        if codec_cfg is None:
+            return rgb_ingest_train(generator, x, cfg.image_size,
+                                    cfg.dataset)
+        return dct_ingest_train(generator, x, codec_cfg)
+    return ingest
+
+
+def train_step(model, opt, cfg, x, labels, generator):
+    """One optimizer step on the ingested batch ``x``; returns (loss,
+    logits), detached.  Dropout on the logits (reference train.py:396)
+    draws its mask from ``generator``."""
+    model.train()
+    with fp32_convolutions():
+        _, logits = model(x)
+        if cfg.dropout:
+            keep = torch.rand(logits.shape, generator=generator) \
+                < 1 - cfg.dropout
+            logits = torch.where(keep.to(logits.device),
+                                 true_div(logits, 1 - cfg.dropout),
+                                 torch.zeros_like(logits))
+        loss = cross_entropy(logits, labels)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+    params = [p for g in opt.param_groups for p in g["params"]]
+    clip_gradients(params, cfg)
+    opt.step()
+    return loss.detach(), logits.detach()
+
+
+@torch.no_grad()
+def eval_step(model, x, labels):
+    model.eval()
+    _, logits = model(x)
+    return cross_entropy(logits, labels), logits
+
+
+def evaluate(model, ingest, ds, idx, batch, device):
+    """(loss, top-1, top-5) meters and the predictions over ``idx``."""
+    vl, v1, v5 = AverageMeter(), AverageMeter(), AverageMeter()
+    preds = []
+    for images, labels in pipeline.batches(ds, idx, batch, shuffle=False,
+                                           drop_remainder=False):
+        y = torch.as_tensor(labels.astype(np.int64), device=device)
+        loss, logits = eval_step(model, ingest(images), y)
+        logits = logits.cpu().numpy()
+        p1, p5 = topk_accuracy(logits, labels)
+        vl.update(float(loss), len(labels))
+        v1.update(p1, len(labels))
+        v5.update(p5, len(labels))
+        preds.append(np.argmax(logits, 1))
+    return vl, v1, v5, np.concatenate(preds) if preds else np.zeros(0)
+
+
+def main(argv=None):
+    cfg = parse_args("train", argv)
+    return main_impl(cfg)
+
+
+def main_impl(cfg):
+    """Train as the flags say; returns a summary: ``best_val`` (top-1 %),
+    ``test_top1`` (%), ``test_correct``, ``test_total``, ``epochs``,
+    ``steps``, ``epoch_s`` (seconds per training epoch) and ``ckpt_dir``."""
+    device = torch.device(cfg.device)
+    if device.type == "cuda":
+        device = default_device()        # raises without a GPU
+    for flag in ("mesh", "profile_dir"):
+        if getattr(cfg, flag, None):
+            raise NotImplementedError(f"--{flag} is not yet ported")
+    ckpt_dir = checkpoint_dir_for(cfg)
+    os.makedirs(ckpt_dir, exist_ok=True)
+    print(f"Checkpoint dir: {ckpt_dir}")
+
+    img = cfg.image_size_dct if cfg.dct_status else cfg.image_size
+    in_ch = cfg.channels if cfg.dct_status else 3
+    spec = build_spec(cfg.model, in_channels=in_ch, img_size=img,
+                      num_classes=cfg.num_classes, bit_width=cfg.bit_width)
+    codec_cfg = CodecConfig(cfg.channels, cfg.filter_size, cfg.image_size_dct,
+                            cfg.dct_pattern) if cfg.dct_status else None
+
+    # datasets and the reference's split (train_test_split, rs=42)
+    pix = codec_cfg.pixel_size if codec_cfg else cfg.image_size
+    trainset, testset = (pipeline.get_dataset(
+        cfg.dataset, cfg.dataset_path, train, image_size=pix,
+        num_classes=cfg.num_classes, synthetic_size=cfg.synthetic_size)
+        for train in (True, False))
+    train_idx, val_idx = pipeline.train_val_split(len(trainset), 0.1)
+    print(f"Device: {device}")
+    ingest = make_ingest(cfg, codec_cfg, device)
+
+    params, state = init_model(spec, torch.Generator().manual_seed(0))
+    # per-layer topology summary (reference train.py:335-347, torchinfo)
+    print(model_summary(spec, params))
+    if spec.quantized:
+        # runtime-stats activation-scale calibration on one batch
+        imgs0, _ = trainset.gather(train_idx[:64])
+        params = calibrate_scales(params, state, ingest(imgs0), spec)
+    n_params = sum(int(np.prod(np.shape(a))) for a in tree_leaves(params))
+    print(f"Number Parameters: {n_params}")
+
+    start_epoch = cfg.start_epoch
+    best_val = 0.0
+    opt_state = None
+    if cfg.resume:
+        ck = load_ckpt(cfg.resume)
+        params, state = ck["state"]
+        opt_state = ck["optimizer"]
+        if not (isinstance(opt_state, dict) and "param_groups" in opt_state):
+            raise ValueError(f"{cfg.resume}: its optimizer state was not "
+                             "written by this package")
+        # resumes AT the saved epoch, as the reference does (ROADMAP)
+        start_epoch = ck["epoch"]
+        best_val = ck["prec1"]
+        print(f"Resumed {cfg.resume} ({best_val:.3f}% @ epoch {ck['epoch']})")
+
+    model = QATResNet.from_params(params, state, spec).to(device)
+    opt = make_optimizer(cfg, cfg.lr, model.parameters())
+    if opt_state is not None:
+        opt.load_state_dict(optimizer_state_from_numpy(opt_state))
+        # the JAX trainer rebuilds its optimizer at the base LR and
+        # decays it again only at the next milestone (ROADMAP)
+        set_lr(opt, cfg.lr)
+    stopper = EarlyStopper(patience=10, threshold=0.03)
+    gen = torch.Generator().manual_seed(1234)
+
+    def save(name, epoch, p1, p5):
+        save_ckpt(os.path.join(ckpt_dir, name), epoch, *model.to_params(),
+                  optimizer_state_to_numpy(opt.state_dict()), p1, p5)
+
+    log_path = os.path.join(ckpt_dir, "train_log.jsonl")
+    epoch_s, steps, epochs = [], 0, 0
+    for epoch in range(start_epoch, cfg.stop_epoch):
+        lr = step_decay_lr(cfg.lr, cfg.schedule, cfg.gamma, epoch)
+        if cfg.schedule and epoch + 1 in cfg.schedule:
+            # the reference resets the optimizer's LR on its schedule
+            # (utils.py:127-133)
+            set_lr(opt, lr)
+        print(f"\nEpoch: [{epoch + 1} | {cfg.stop_epoch}] LR: {lr}")
+
+        t = time.time()
+        tl, t1, t5 = AverageMeter(), AverageMeter(), AverageMeter()
+        nb = 0
+        for images, labels in pipeline.batches(
+                trainset, train_idx, cfg.batch_size, shuffle=True, seed=epoch):
+            x = ingest(images, train=True, generator=gen)
+            y = torch.as_tensor(labels.astype(np.int64), device=device)
+            loss, logits = train_step(model, opt, cfg, x, y, gen)
+            p1, p5 = topk_accuracy(logits.cpu().numpy(), labels)
+            tl.update(float(loss), len(labels))
+            t1.update(p1, len(labels))
+            t5.update(p5, len(labels))
+            nb += 1
+            if cfg.verbose and nb % 50 == 0:
+                print(f"[{nb}] Avg. Train Loss: {tl.avg:.3f} | "
+                      f"Top-1 Acc: {t1.avg:.3f}% | Top-5 Acc: {t5.avg:.3f}%")
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        epoch_s.append(time.time() - t)
+        steps += nb
+        epochs += 1
+        print(f"Time for training epoch {epoch}: {epoch_s[-1] / 60:.2f} min")
+
+        if (epoch % cfg.save_freq == 0) or (epoch == cfg.stop_epoch - 1):
+            save(f"{epoch}.tar", epoch, t1.avg, t5.avg)
+
+        vl, v1, v5, _ = evaluate(model, ingest, trainset, val_idx,
+                                 cfg.test_batch_size, device)
+        print(f"Avg. Val Loss: {vl.avg:.3f} | Top-1 Acc: {v1.avg:.3f}% | "
+              f"Top-5 Acc: {v5.avg:.3f}%")
+        if v1.avg > best_val:
+            best_val = v1.avg
+            save("best.tar", epoch, v1.avg, v5.avg)
+
+        with open(log_path, "a") as lf:
+            lf.write(json.dumps({
+                "epoch": epoch, "lr": lr,
+                "train_loss": round(tl.avg, 5), "train_top1": round(t1.avg, 3),
+                "val_loss": round(vl.avg, 5), "val_top1": round(v1.avg, 3),
+                "val_top5": round(v5.avg, 3),
+            }) + "\n")
+
+        if stopper(vl.avg):
+            print(f"Early stopping at epoch: {epoch}")
+            break
+
+    # final test with the best model
+    best = os.path.join(ckpt_dir, "best.tar")
+    if os.path.exists(best):
+        ck = load_ckpt(best)
+        model = QATResNet(*ck["state"], spec).to(device)
+        print(f"Loaded best model {best} (epoch {ck['epoch']})")
+    test_idx = np.arange(len(testset))
+    _, _, _, preds = evaluate(model, ingest, testset, test_idx,
+                              max(cfg.test_batch_size, 2), device)
+    correct = int((preds == testset.labels[test_idx]).sum())
+    total = len(test_idx)
+    print(f"Test Acc: {correct}/{total} ({100.0*correct/max(total,1):.2f}%)")
+    if not cfg.dct_status or cfg.dataset in ("cifar10", "Imagenette",
+                                             "synthetic"):
+        print("Plots not written: the example grid and the confusion "
+              "heatmap (viz.py) are not yet ported")
+    print("Done")
+    return {"best_val": best_val, "test_top1": 100.0 * correct / max(total, 1),
+            "test_correct": correct, "test_total": total, "epochs": epochs,
+            "steps": steps, "epoch_s": epoch_s, "ckpt_dir": ckpt_dir}
+
+
+if __name__ == "__main__":
+    try:
+        main()
+    except KeyboardInterrupt:
+        print("Interrupted")
+        sys.exit(130)

@@ -1,6 +1,6 @@
-"""Evaluation meters, the port's copy of ``AverageMeter`` and
-``topk_accuracy`` from ``dct_cryptonets_tpu.utils`` (behavioral parity with
-the reference's utils.py:74-124), host-side numpy."""
+"""Training utilities, the port's copy of ``dct_cryptonets_tpu.utils``:
+meters, early stopping, top-k accuracy and the step-decay LR (behavioral
+parity with the reference's utils.py:74-138), host-side numpy."""
 import numpy as np
 
 
@@ -32,6 +32,30 @@ class AverageMeter:
         return self._total / self._weight if self._weight else 0.0
 
 
+class EarlyStopper:
+    """Stop when validation loss hasn't recovered for ``patience`` epochs.
+
+    Reference semantics (utils.py:92-108): an epoch counts against the
+    streak only when it exceeds the best loss by more than ``threshold``;
+    any new best resets the streak.
+    """
+
+    def __init__(self, patience=10, threshold=0.03):
+        self.patience = patience
+        self.threshold = threshold
+        self._best = float("inf")
+        self._streak = 0
+
+    def __call__(self, val_loss) -> bool:
+        if val_loss < self._best:
+            self._best = val_loss
+            self._streak = 0
+            return False
+        if val_loss > self._best + self.threshold:
+            self._streak += 1
+        return self._streak >= self.patience
+
+
 def topk_accuracy(logits, targets, ks=(1, 5)):
     """Top-k accuracy in percent (reference utils.py:111-124)."""
     logits = np.asarray(logits)
@@ -44,3 +68,14 @@ def topk_accuracy(logits, targets, ks=(1, 5)):
         kk = min(k, logits.shape[1])
         out.append(100.0 * correct[:, :kk].any(axis=1).mean())
     return out
+
+
+def step_decay_lr(base_lr, schedule, gamma, epoch):
+    """LR after step decays at `schedule` epochs (reference utils.py:127-133,
+    applied with epoch+1 semantics)."""
+    lr = base_lr
+    if schedule:
+        for e in schedule:
+            if epoch + 1 >= e:
+                lr *= gamma
+    return lr

@@ -1,9 +1,10 @@
 """The CUDA kernels (K1 rotate_decompose in both layouts, K2
 build_bigd_strips, K3 fused_external, K4 combine_accumulate, K5
 rotate_diff) against their plain PyTorch versions on the card, and the
-engines against each other, bit for bit; and the clear QAT model's classes
-on the card against the CPU's.  Every test here needs an NVIDIA GPU and
-skips on the CPU.
+engines against each other, bit for bit; the clear QAT model's classes on
+the card against the CPU's; and the trainer's step and augmented ingest on
+the card against the CPU's.  Every test here needs an NVIDIA GPU and skips
+on the CPU.
 
 This file imports no JAX and nothing of the JAX package, so it also runs
 on a machine without them:
@@ -325,3 +326,105 @@ def test_clear_model_classes_on_the_card_equal_the_cpus(card):
         assert torch.backends.cudnn.allow_tf32
     finally:
         torch.backends.cudnn.allow_tf32 = before
+
+
+def one_train_step(params, state, spec, x, labels, device):
+    """One Adam step of the trainer in float64 from a pytree on ``device``:
+    (loss, params, state, gradients) after it."""
+    from dct_cryptonets_tpu_torch import train as TRAIN
+    from dct_cryptonets_tpu_torch.models.resnet import QATResNet
+
+    dt = torch.float64
+    model = QATResNet.from_params(params, state, spec).to(device, dt)
+    cfg = TRAIN.parse_args("train", ["--device", device.type])
+    opt = TRAIN.make_optimizer(cfg, cfg.lr, model.parameters())
+    loss, _ = TRAIN.train_step(model, opt, cfg, x.to(device, dt),
+                               labels.to(device), torch.Generator())
+    grads = [p.grad.cpu().numpy() for p in model.parameters()]
+    return float(loss), *model.to_params(), grads
+
+
+def test_train_step_on_the_card_matches_the_cpu(card):
+    """One Adam step of a ResNet20qat (24 ch, 8x8) from the same
+    calibrated init on the same batch, in float64: the loss, the gradients
+    and the BatchNorm state agree to 1e-9; so do the weights but where
+    Adam's first step (about the LR whatever the gradient's size) turns a
+    gradient within rounding of 0 either way (at most 1e-4 of them).  (In
+    float32 a rounding flips about 1e-5 of the 4-bit fake-quant
+    roundings, each moving the step; float64 makes a flip vanishingly
+    rare, so the comparison sees the arithmetic.)"""
+    from dct_cryptonets_tpu_torch.data import pipeline
+    from dct_cryptonets_tpu_torch.data.codec import CodecConfig, dct_ingest
+    from dct_cryptonets_tpu_torch.models.resnet import (
+        build_spec, calibrate_scales, init_model, tree_leaves)
+
+    spec = build_spec("ResNet20qat", in_channels=24, img_size=8)
+    cfg = CodecConfig(24, 4, 8)
+    ds = pipeline.get_dataset("synthetic", None, True, image_size=32)
+    x = dct_ingest(ds.images[:64], cfg)
+    labels = torch.as_tensor(ds.labels[32:64].astype(np.int64))
+    params, state = init_model(spec)
+    params = calibrate_scales(params, state, x[:32], spec)
+    cpu = one_train_step(params, state, spec, x[32:], labels,
+                         torch.device("cpu"))
+    gpu = one_train_step(params, state, spec, x[32:], labels, card)
+    np.testing.assert_allclose(gpu[0], cpu[0], rtol=1e-9)
+    for g, c in zip(tree_leaves((gpu[2], gpu[3])),
+                    tree_leaves((cpu[2], cpu[3]))):
+        np.testing.assert_allclose(g, c, rtol=0,
+                                   atol=1e-9 * np.abs(c).max() + 1e-30)
+    dw = np.concatenate([np.abs(g - c).ravel() for g, c in zip(
+        tree_leaves(gpu[1]), tree_leaves(cpu[1]))])
+    assert (dw > 1e-9).mean() <= 1e-4 and dw.max() <= 2.1e-3
+
+
+def test_backward_convolutions_run_without_tf32(card):
+    """With cuDNN's TF32 flag on, the trainer's backward convolutions run
+    with it off (a hook in every convolution's backward reads it), and
+    the caller's flag is back after the step."""
+    from dct_cryptonets_tpu_torch import train as TRAIN
+    from dct_cryptonets_tpu_torch.models import resnet as RES
+
+    spec = RES.build_spec("ResNet20qat", in_channels=24, img_size=8)
+    model = RES.QATResNet.from_params(*RES.init_model(spec), spec).to(card)
+    seen = []
+    for m in model.modules():
+        if isinstance(m, RES._QConv):
+            m.register_full_backward_hook(
+                lambda *_: seen.append(torch.backends.cudnn.allow_tf32))
+    cfg = TRAIN.parse_args("train", [])
+    opt = TRAIN.make_optimizer(cfg, cfg.lr, model.parameters())
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        x = torch.randn((16, 8, 8, 24), device=card)
+        TRAIN.train_step(model, opt, cfg, x, torch.arange(16, device=card)
+                         % 10, torch.Generator())
+        assert len(seen) == 21 and not any(seen)
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+
+
+def test_dct_ingest_train_on_the_card_matches_the_cpu(card):
+    """The same generator seed gives the same draws on both devices; the
+    rounded pixels agree but for a rare float32 tie (at most 1e-3 of them,
+    by one level), and the DCT of the same pixels to float32 rounding (4
+    ulps of the largest coefficient)."""
+    from dct_cryptonets_tpu_torch.data import codec as PC
+
+    cfg = PC.CodecConfig(24, 4, 16)
+    x = torch.as_tensor(np.random.default_rng(0).integers(
+        0, 256, (32, 64, 64, 3)).astype(np.uint8))
+    draws = PC.draw_train(torch.Generator().manual_seed(5), 32, 64, 64)
+    cpu = PC.augment(x, draws, cfg.pixel_size)
+    gpu = PC.augment(x.to(card), draws, cfg.pixel_size).cpu()
+    d = (gpu - cpu).abs()
+    assert (d > 0).float().mean() <= 1e-3 and d.max() <= 1
+    got = PC.dct_from_pixels(cpu.to(card), cfg).cpu()
+    want = PC.dct_from_pixels(cpu, cfg)
+    ulp = np.spacing(np.float32(want.abs().max()))
+    np.testing.assert_allclose(got, want, rtol=0, atol=4 * ulp)
+    a = PC.dct_ingest_train(torch.Generator().manual_seed(5), x.to(card),
+                            cfg)
+    assert a.is_cuda and a.shape == (32, 16, 16, 24)

@@ -79,13 +79,106 @@ def test_dump_circuit_holds_the_audit_summary(tmp_path, capsys):
 def test_unported_driver_paths_raise():
     from dct_cryptonets_tpu_torch.homomorphic_eval import main
     base = ["--dataset", "synthetic", "--dct_status", "--channels", "24",
-            "--filter_size", "4", "--image_size_dct", "16", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="PTQ"):
-        main(base + ["--model", "ResNet20", "--checkpoint_path", CKPT])
-    with pytest.raises(NotImplementedError, match="checkpoint_path"):
-        main(base + ["--model", "ResNet20qat"])
+            "--filter_size", "4", "--image_size_dct", "16", "--device", "cpu",
+            "--model", "ResNet20qat", "--checkpoint_path", CKPT]
+    for flag in ("--mesh", "--profile_dir"):
+        with pytest.raises(NotImplementedError, match=flag):
+            main(base + [flag, "2"])
     with pytest.raises(NotImplementedError, match="not yet ported"):
         PIPE.get_dataset("cifar10", None, False)
+
+
+TINY_EVAL = ["--dataset", "synthetic", "--dct_status", "--channels", "24",
+             "--filter_size", "4", "--image_size_dct", "8",
+             "--test_subset", "2", "--calib_batch_size", "8",
+             "--fhe_mode", "simulate", "--device", "cpu"]
+
+
+def test_random_init_path_matches_jax():
+    """Without a checkpoint the eval CLI draws a model, calibrates its
+    scales and runs one train-mode forward for its BatchNorm statistics:
+    the port's helper fed the JAX package's init gives the JAX CLI's
+    params and state (batch statistics reduced in another order: rtol
+    1e-5, atol 1e-6), and the same circuit in both packages."""
+    import jax
+    import jax.numpy as jnp
+    from dct_cryptonets_tpu.fhe import compiler as JCOMP
+    from dct_cryptonets_tpu.models import resnet as JRES
+    from dct_cryptonets_tpu_torch.data.codec import CodecConfig
+    from dct_cryptonets_tpu_torch.fhe import compiler as COMP
+    from dct_cryptonets_tpu_torch.homomorphic_eval import (
+        calibrate_random_init, make_ingest)
+    from dct_cryptonets_tpu_torch.models import resnet as RES
+
+    kw = dict(in_channels=24, img_size=8)
+    spec, jspec = (RES.build_spec("ResNet20qat", **kw),
+                   JRES.build_spec("ResNet20qat", **kw))
+    cfg = CodecConfig(24, 4, 8)
+    ds = PIPE.get_dataset("synthetic", None, True, image_size=32)
+    x = make_ingest(cfg, "cpu")(ds.gather(np.arange(8))[0])
+    to_np = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
+    params, state = to_np(JRES.init_model(jax.random.key(0), jspec))
+    jx = jnp.asarray(x.numpy())
+    wp = JRES.calibrate_scales(params, state, jx, jspec)
+    _, _, ws = JRES.forward(wp, state, jx, jspec, train=True)
+    gp, gs = calibrate_random_init(params, state, x, spec)
+    for g, w in zip(jax.tree_util.tree_leaves((gp, gs)),
+                    jax.tree_util.tree_leaves(to_np((wp, ws)))):
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6)
+    calib = x.numpy()[:4]
+    assert (COMP.lower(gp, gs, spec, calib_data=calib).dump()
+            == JCOMP.lower(gp, gs, jspec, calib_data=calib).dump())
+
+
+def test_ptq_path_runs_and_matches_jax(capsys):
+    """A float model (no 'qat' in its name) compiles by post-training
+    quantization: the eval CLI runs end to end in simulate mode.  Its
+    quantized params equal the JAX ``quantize_float_model``'s on the same
+    float params and calibration batch (scales are maxima of float32
+    activations: rtol 1e-5), and its circuit equals the JAX compile of
+    those params: a scale an ulp away prints otherwise in the listing, so
+    that stage is fed the port's own params."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    from dct_cryptonets_tpu.fhe import runtime as JRUN
+    from dct_cryptonets_tpu.models import resnet as JRES
+    from dct_cryptonets_tpu_torch.config import parse_args
+    from dct_cryptonets_tpu_torch.homomorphic_eval import main, prepare
+    from dct_cryptonets_tpu_torch.models import resnet as RES
+
+    main(TINY_EVAL + ["--model", "ResNet20"])
+    out = capsys.readouterr().out
+    assert "WARNING: No checkpoint loaded" in out
+    assert "Compiling FHE Model (PTQ)" in out and "it works in FHE" in out
+    assert "Encrypted top1 acc:" in out and "Done" in out
+    s = prepare(parse_args("homomorphic_eval",
+                           TINY_EVAL + ["--model", "ResNet20"]))
+    calib = s.ingest(s.trainset.gather(np.arange(8))[0])
+    jspec = JRES.build_spec("ResNet20", in_channels=24, img_size=8)
+    gp, gspec = RES.quantize_float_model(s.params, s.state, calib, s.spec)
+    wp, wspec = JRES.quantize_float_model(s.params, s.state,
+                                          jnp.asarray(calib.numpy()), jspec)
+    assert dataclasses.asdict(gspec) == dataclasses.asdict(wspec)
+    for g, w in zip(jax.tree_util.tree_leaves(gp),
+                    jax.tree_util.tree_leaves(wp)):
+        np.testing.assert_allclose(g, np.asarray(w), rtol=1e-5)
+    want = JRUN.compile_qat_model(gp, s.state, wspec, n_bits=5,
+                                  rounding_threshold_bits=6,
+                                  calib_data=calib.numpy())
+    assert s.module.circuit.dump() == want.circuit.dump()
+
+
+def test_train_needs_a_gpu_unless_the_cpu_is_asked_for(monkeypatch):
+    """Without a GPU the trainer raises unless ``--device cpu`` is given,
+    as the eval CLI does."""
+    from dct_cryptonets_tpu_torch import train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--dataset", "synthetic", "--dct_status",
+                    "--model", "ResNet20qat", "--channels", "24",
+                    "--filter_size", "4", "--image_size_dct", "8"])
 
 
 @pytest.mark.parametrize("n,test_size,seed", [
@@ -130,7 +223,8 @@ def run_isolated(code: str) -> str:
 
 def test_port_never_imports_jax():
     """Every port module and the benchmark's scripts (``benchmark/run.py``,
-    ``benchmark/rates.py``) import, and a CPU bootstrap runs on both
+    ``benchmark/rates.py``) import, a train step runs on the CPU
+    (``dct_cryptonets_tpu_torch.train``), and a CPU bootstrap runs on both
     engines under the port's own keys, without JAX or any
     ``dct_cryptonets_tpu`` module entering ``sys.modules``."""
     code = textwrap.dedent("""
@@ -142,6 +236,19 @@ def test_port_never_imports_jax():
         for name in names:
             importlib.import_module(name)
         import benchmark.rates, benchmark.run
+        import dct_cryptonets_tpu_torch.train as TRAIN
+        from dct_cryptonets_tpu_torch.models import resnet as RES
+        from dct_cryptonets_tpu_torch.models.topology import StemSpec
+        spec = RES.ModelSpec("t", (1,), (4,), 3, 4, num_classes=4,
+                             bit_width=3, stem_override=StemSpec(
+                                 1, 1, 0, None, None, 4, True))
+        model = RES.QATResNet.from_params(*RES.init_model(spec), spec)
+        cfg = TRAIN.parse_args("train", ["--device", "cpu"])
+        opt = TRAIN.make_optimizer(cfg, 1e-3, model.parameters())
+        x = torch.randn((8, 4, 4, 3), generator=torch.Generator().manual_seed(0))
+        loss, _ = TRAIN.train_step(model, opt, cfg, x, torch.arange(8) % 4,
+                                   torch.Generator())
+        assert np.isfinite(float(loss))
         from dct_cryptonets_tpu_torch.fhe import keys as KEYS
         from dct_cryptonets_tpu_torch.fhe.params import TEST_PARAMS as par
         from dct_cryptonets_tpu_torch.fhe import pbs as P, torus as T
