@@ -7,7 +7,8 @@ Phases, each printed with its elapsed seconds; any failure exits nonzero:
   0. device: require CUDA, print the card's name and power limit, turn TF32
      off for matmuls and cuDNN;
   1. build the CMUX kernels (K1-K5) from csrc/ with nvcc for sm_90a, one
-     nvcc per source, all started together;
+     nvcc per source, all started together, and beside them the native
+     host codec (native/dctcodec.cpp) with g++ into build/native/;
   2. each kernel against its plain PyTorch version, bit for bit, at the
      main (preset 6, N=2048) and extraction (k2n512f, N=512) lattices (K1
      and K2 in both layouts, K2 at drop 0, 1, 2 and 4, K3 at every (drop,
@@ -58,13 +59,32 @@ Phases, each printed with its elapsed seconds; any failure exits nonzero:
      clear and simulate top-1 over the CLI's 359 digits test images
      (fails when simulate is more than 5 points under clear); one PTQ
      (ResNet20) and one random-init (ResNet20qat) compile through the
-     same flow, each simulated on 4 images.  No CMUX kernel runs here.
+     same flow, each simulated on 4 images.  No CMUX kernel runs here;
+  8. datasets, transforms, native codec (the data layer; no CMUX kernel
+     runs here): a CIFAR-10 fixture at full size in the python-pickle
+     layout (50,000 + 10,000 class-structured images from a seed, under
+     build/phase8_cifar/); ``train.main`` on it at the flagship's preset
+     for one epoch (351 steps; fails under 30 % best val top-1, chance is
+     10 %); ``homomorphic_eval.prepare`` on it with the committed flagship
+     (clear and simulate top-1 over 64 test images; the clear model's
+     classes on CUDA equal to the CPU's on 8) and one ``homomorphic_eval``
+     run under ``--profile_dir``, whose trace must hold a CUDA kernel
+     event; the native host codec (built in phase 1) against the card's
+     ``dct_from_pixels`` at the CIFAR preset (fs 4, S 16, 24 ch) and the
+     ResNet18 preset (fs 8, S 56, 64 ch on 448-pixel crops), each with its
+     images per s; every deterministic transform on CUDA against the CPU on
+     the same draws (128 x 32^2 and 16 x 448^2), and one composed
+     augmentation timed on 128 x 224^2; and, where Pillow is installed, an
+     Imagenette folder fixture (10 classes of 500 x 375 PNGs) through a
+     few ``train.main`` steps of ResNet18qat at the ResNet18 preset.
 
 The second-to-last line is the kernels' JSON record, the last line the
 device record.
 """
+import importlib.util
 import json
 import os
+import pickle
 import subprocess
 import sys
 import time
@@ -939,6 +959,329 @@ def phase_train(dev):
               f"simulate {sim}/{n}; {time.time() - t:.1f} s", flush=True)
 
 
+# phase 8: the data layer on the CIFAR-10 layout and the ResNet18 preset
+CIFAR_DIR = os.path.join(ROOT, "build", "phase8_cifar")
+PROFILE_DIR = os.path.join(ROOT, "build", "phase8_profile")
+FOLDER_DIR = os.path.join(ROOT, "build", "phase8_imagenette")
+CIFAR_BATCH, CIFAR_TEST = 10_000, 10_000      # images per data_batch_*, test
+# the flagship's preset (scripts/run_train.sh, ResNet20qat) on cifar10
+CIFAR_TRAIN_ARGS = ["--dataset", "cifar10", "--dataset_path", CIFAR_DIR,
+                    "--dct_status", "--train_aug", "--model", "ResNet20qat",
+                    "--channels", "24", "--filter_size", "4",
+                    "--image_size_dct", "16", "--batch_size", "128",
+                    "--test_batch_size", "256", "--lr", "0.001",
+                    "--optimizer", "adam", "--stop_epoch", "1"]
+CIFAR_EVAL_ARGS = ["--dataset", "cifar10", "--dataset_path", CIFAR_DIR,
+                   "--dct_status", "--model", "ResNet20qat", "--channels",
+                   "24", "--filter_size", "4", "--image_size_dct", "16",
+                   "--bit_width", "4", "--n_bits", "5",
+                   "--rounding_threshold_bits", "6", "--rounding_method",
+                   "exact", "--residual_mode", "fused", "--range_margin",
+                   "1.0", "--checkpoint_path", CKPT, "--fhe_mode",
+                   "simulate"]
+MIN_CIFAR_VAL_TOP1 = 30.0       # chance is 10 %
+# (filter_size, image_size_dct, channels): the CIFAR preset and
+# scripts/run_train.sh's ResNet18 preset (448-pixel crops)
+CODEC_PRESETS = ((4, 16, 24), (8, 56, 64))
+# the ResNet18 preset's training flags on the Imagenette folder fixture
+FOLDER_TRAIN_ARGS = ["--dataset", "Imagenette", "--dataset_path",
+                     FOLDER_DIR, "--dct_status", "--train_aug", "--model",
+                     "ResNet18qat", "--channels", "64", "--filter_size", "8",
+                     "--image_size_dct", "56", "--bit_width", "4",
+                     "--batch_size", "16", "--test_batch_size", "16",
+                     "--lr", "0.001", "--optimizer", "adam",
+                     "--stop_epoch", "1"]
+FOLDER_IMAGES = {"train": 8, "val": 2}        # PNGs per class
+
+
+def class_templates(g, h, w, dev, classes=10):
+    """Per class a 4 x 4 x 3 color draw in [64, 192), upscaled bilinearly
+    to h x w: float32 (classes, 3, h, w), ``load_synthetic``'s templates."""
+    import torch.nn.functional as F
+
+    base = torch.randint(64, 192, (classes, 3, 4, 4), generator=g,
+                         device=dev).to(torch.float32)
+    return F.interpolate(base, size=(h, w), mode="bilinear",
+                         align_corners=True)
+
+
+def class_images(g, templates, labels):
+    """uint8 (n, 3, h, w) images of ``labels``, class-structured as
+    ``load_synthetic``'s: the label's template plus smooth noise (an 8 x 8
+    N(0, 20) draw upscaled bilinearly), clipped to [0, 255]."""
+    import torch.nn.functional as F
+
+    n, (h, w) = len(labels), templates.shape[-2:]
+    noise = 20 * torch.randn((n, 3, 8, 8), generator=g,
+                             device=templates.device)
+    noise = F.interpolate(noise, size=(h, w), mode="bilinear",
+                          align_corners=True)
+    return torch.clamp(templates[labels] + noise, 0, 255).to(torch.uint8)
+
+
+def write_cifar10(root, dev, per_batch, n_test, seed=8):
+    """The python-pickle CIFAR-10 layout under ``root/cifar-10-batches-py``:
+    five ``data_batch_*`` of ``per_batch`` images and a ``test_batch`` of
+    ``n_test``, each a uint8 (n, 3072) ``data`` (R, G, B planes of
+    32 x 32) and a ``labels`` list, under the bytes keys the published
+    batches load with."""
+    d = os.path.join(root, "cifar-10-batches-py")
+    os.makedirs(d, exist_ok=True)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    templates = class_templates(g, 32, 32, dev)
+    for name in [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]:
+        n = n_test if name == "test_batch" else per_batch
+        y = torch.randint(0, 10, (n,), generator=g, device=dev)
+        x = class_images(g, templates, y).reshape(n, 3072)
+        with open(os.path.join(d, name), "wb") as fh:
+            pickle.dump({b"batch_label": name.encode(),
+                         b"data": x.cpu().numpy(), b"labels": y.tolist()},
+                        fh, protocol=4)
+
+
+def write_imagenette(root, dev, per_class, seed=9):
+    """An Imagenette ImageFolder fixture: ``train/`` and ``val/``, each
+    with 10 class subdirectories of 500 x 375 class-structured PNGs."""
+    from PIL import Image
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    templates = class_templates(g, 375, 500, dev)
+    for split, n in per_class.items():
+        for c in range(10):
+            d = os.path.join(root, split, f"n{c:08d}")
+            os.makedirs(d, exist_ok=True)
+            imgs = class_images(g, templates, torch.full((n,), c, device=dev))
+            for i, img in enumerate(imgs.permute(0, 2, 3, 1).cpu().numpy()):
+                Image.fromarray(img).save(os.path.join(d, f"{i}.png"),
+                                          compress_level=1)
+
+
+def trace_kernel_events(profile_dir):
+    """(trace file, count of CUDA kernel events) of the one
+    ``torch.profiler`` trace in ``profile_dir``."""
+    import glob
+
+    files = glob.glob(os.path.join(profile_dir, "*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"expected one trace file in {profile_dir}, "
+                             f"found {files}")
+    with open(files[0]) as fh:
+        events = json.load(fh)["traceEvents"]
+    return files[0], sum(e.get("cat") == "kernel" for e in events)
+
+
+def host_ms(fn, dev, reps=3):
+    """Milliseconds per call of ``fn`` on the host clock, after one warm-up
+    call, around work that ends in a device sync."""
+    fn()
+    return common.timed(lambda: [fn() for _ in range(reps)], dev)[1] \
+        / reps * 1e3
+
+
+# tolerances of the transforms on CUDA against the CPU, on the 0-255 scale
+# (the same draws): flips, crops, padding, the luma and the salt-and-pepper
+# select are bit for bit; the resizes, the color jitter and the noise sum
+# float32 terms in another order; the warps' sample positions differ by
+# ulps of the largest coordinate (cos, sin, tan and the 3x3 inverse on
+# another library), and a random image's neighbours differ by up to 255,
+# so their tolerance grows with the image: 255 * 16 ulps of max(H, W);
+# the perspective's homography is solved and inverted by another library,
+# its error carried by the 8x8 system's conditioning: 64 ulps of max(H, W)
+def transform_cases(x, g):
+    """{name: (fn(x on a device), tolerance)} of every deterministic
+    transform of ``data/transforms.py`` at x's shape, on draws from the
+    CPU generator ``g``."""
+    from dct_cryptonets_tpu_torch.data import transforms as TR
+
+    B, H, W, _ = x.shape
+    warp = 255 * 16 * float(np.finfo(np.float32).eps) * max(H, W)
+    flt = 1e-3
+    top, left = TR.draw_crop(g, B, H + 4, W + 4, H // 2)
+    flags = TR.draw_flags(g, B, 0.5)
+    jitter = TR.draw_color_jitter(g, B, 0.4, 0.4, 0.4, 0.1)
+    aff = TR.draw_affine(g, B, H, W, 20.0, (0.1, 0.1), (0.8, 1.2), 10.0)
+    persp = TR.draw_perspective(g, B, H, W, 0.5, 0.5)
+    noise = TR.draw_normal(g, tuple(x.shape))
+    u = torch.rand((B, H, W, 1), generator=g)
+    return {
+        "resize": (lambda x: TR.resize(x, (H * 3 // 4, W + 5)), flt),
+        "rescale": (lambda x: TR.rescale(x, 0.5), flt),
+        "center_crop": (lambda x: TR.center_crop(x, H // 2), 0.0),
+        "pad + crop": (lambda x: TR.crop(TR.pad(x, 2, 7.0), top, left,
+                                         H // 2), 0.0),
+        "hflip": (TR.hflip, 0.0), "vflip": (TR.vflip, 0.0),
+        "flip where flagged": (lambda x: TR.where_flagged(
+            flags, TR.hflip(x), x), 0.0),
+        "grayscale": (TR.grayscale, 0.0),
+        "jitter colors": (lambda x: TR.jitter_colors(x, *jitter), flt),
+        "add noise": (lambda x: TR.add_noise(x, noise, 1.0, 10.0), flt),
+        "salt and pepper": (lambda x: TR.salt_pepper(x, u, 0.05), 0.0),
+        "rotate": (lambda x: TR.rotate(x, aff[0], fill=3.0), warp),
+        "affine": (lambda x: TR.affine(x, *aff), warp),
+        "warp corners": (lambda x: TR.warp_corners(x, *persp), 4 * warp),
+        "compose": (TR.compose(TR.vflip, lambda x: TR.affine(x, *aff),
+                               lambda x: TR.add_noise(x, noise)), warp),
+    }
+
+
+def phase_data(dev, card, have_pil):
+    """Phase 8: the data layer on the card (no CMUX kernel)."""
+    import shutil
+
+    from dct_cryptonets_tpu_torch import homomorphic_eval as HE
+    from dct_cryptonets_tpu_torch import train as TRAIN
+    from dct_cryptonets_tpu_torch.data import codec as PC
+    from dct_cryptonets_tpu_torch.data import native as NATIVE
+    from dct_cryptonets_tpu_torch.data import pipeline
+    from dct_cryptonets_tpu_torch.data import transforms as TR
+    from dct_cryptonets_tpu_torch.models.resnet import QATResNet
+
+    device_args = ["--device", dev.type]
+    # a. the CIFAR-10 fixture at full size
+    shutil.rmtree(CIFAR_DIR, ignore_errors=True)
+    t = time.time()
+    write_cifar10(CIFAR_DIR, dev, CIFAR_BATCH, CIFAR_TEST)
+    train_ds = pipeline.get_dataset("cifar10", CIFAR_DIR, True)
+    test_ds = pipeline.get_dataset("cifar10", CIFAR_DIR, False)
+    print(f"  a. [{card}] CIFAR-10 fixture: {len(train_ds)} + "
+          f"{len(test_ds)} images {train_ds.images.shape[1:]} "
+          f"{train_ds.images.dtype}, classes {train_ds.classes[:2]}...; "
+          f"written and loaded in "
+          f"{time.time() - t:.1f} s", flush=True)
+    if (train_ds.images.shape, test_ds.images.shape) != (
+            (5 * CIFAR_BATCH, 32, 32, 3), (CIFAR_TEST, 32, 32, 3)):
+        raise AssertionError("the CIFAR-10 fixture loads at another size")
+
+    # b. the trainer on it at the flagship's preset, one epoch
+    ckdir = os.path.join(ROOT, "build", "phase8_train")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    t = time.time()
+    res = TRAIN.main(CIFAR_TRAIN_ARGS + device_args
+                     + ["--checkpoint_dir", ckdir])
+    ep = res["epoch_s"]
+    print(f"  b. [{card}] train cifar10 (ResNet20qat 24 x 16^2, batch 128, "
+          f"--train_aug): {res['steps']} steps, {ep[0]:.2f} s per epoch, "
+          f"{res['steps'] / sum(ep):.1f} steps per s; best val top-1 "
+          f"{res['best_val']:.3f} %, test top-1 {res['test_top1']:.3f} % "
+          f"({res['test_correct']}/{res['test_total']}); "
+          f"{time.time() - t:.1f} s in all", flush=True)
+    if res["steps"] != 5 * CIFAR_BATCH * 9 // 10 // 128:
+        raise AssertionError(f"{res['steps']} train steps")
+    if res["best_val"] < MIN_CIFAR_VAL_TOP1:
+        raise AssertionError(f"best val top-1 {res['best_val']:.2f} % is "
+                             f"under {MIN_CIFAR_VAL_TOP1} %")
+
+    # c. the eval flow on it with the committed flagship, and --profile_dir
+    t = time.time()
+    s = HE.prepare(HE.parse_args("homomorphic_eval", CIFAR_EVAL_ARGS + [
+        "--test_subset", "64"] + device_args), dev)
+    clear, _ = HE.test_unencrypted(s.model, s.ingest, s.testset, s.test_idx,
+                                   64)
+    sim, _ = HE.test_encrypted(s.module, np.asarray(s.params["classifier"][
+        "w"]), np.asarray(s.params["classifier"]["b"]), s.ingest, s.testset,
+        s.test_idx, 64, "simulate")
+    images = s.testset.gather(s.test_idx[:8])[0]
+    x = PC.make_ingest(PC.CodecConfig(24, 4, 16), "cpu")(images)
+    with torch.no_grad():
+        want = QATResNet(s.params, s.state, s.spec).eval()(x)[1].argmax(1)
+        got = s.model(x.to(dev))[1].argmax(1).cpu()
+    print(f"  c. [{card}] committed flagship on the fixture's "
+          f"{len(s.test_idx)} test images: clear top-1 {clear.avg:.3f} %, "
+          f"simulate top-1 {sim.avg:.3f} % (digits weights on other data); "
+          f"classes of 8 "
+          f"on the card {got.tolist()}, on the CPU {want.tolist()}; "
+          f"{time.time() - t:.1f} s", flush=True)
+    if not torch.equal(got, want):
+        raise AssertionError("the clear model's classes on the card differ "
+                             "from the CPU's")
+    shutil.rmtree(PROFILE_DIR, ignore_errors=True)
+    t = time.time()
+    HE.main(CIFAR_EVAL_ARGS + ["--test_subset", "8", "--profile_dir",
+                               PROFILE_DIR] + device_args)
+    path, kernels = trace_kernel_events(PROFILE_DIR)
+    print(f"  c. [{card}] homomorphic_eval --profile_dir: "
+          f"{os.path.relpath(path, ROOT)} "
+          f"({os.path.getsize(path) / 1e6:.1f} MB), {kernels} CUDA kernel "
+          f"events; {time.time() - t:.1f} s", flush=True)
+    if dev.type == "cuda" and kernels == 0:
+        raise AssertionError("the --profile_dir trace holds no CUDA kernel "
+                             "event")
+
+    # d. the native host codec against the card's dct_from_pixels
+    for fs, S, ch in CODEC_PRESETS:
+        cfg = PC.CodecConfig(ch, fs, S)
+        crops = PC._eval_resize_crop(torch.as_tensor(test_ds.images[:64]),
+                                     cfg.pixel_size).to(torch.uint8).numpy()
+        host = NATIVE.dct_ingest_native(crops, cfg)
+        on_dev = torch.as_tensor(crops, device=dev)
+        card_out = PC.dct_from_pixels(on_dev, cfg).cpu().numpy()
+        diff = np.abs(host - card_out)
+        share = float((diff < 5e-2).mean())
+        h_ms = host_ms(lambda: NATIVE.dct_ingest_native(crops, cfg),
+                       torch.device("cpu"))
+        d_ms = host_ms(lambda: PC.dct_from_pixels(on_dev, cfg), dev)
+        print(f"  d. [{card}] native codec vs the card's dct_from_pixels, fs "
+              f"{fs}, S {S}, {ch} ch on 64 x {cfg.pixel_size}^2 crops: "
+              f"{100 * share:.3f} % of elements within 5e-2, max |d| "
+              f"{diff.max():.3g} (tolerance: 99 %, < 2); host "
+              f"{64e3 / h_ms:.0f} images per s ({min(os.cpu_count() or 1, 8)}"
+              f" threads), card {64e3 / d_ms:.0f} images per s", flush=True)
+        if share <= 0.99 or diff.max() >= 2.0:
+            raise AssertionError(f"native codec fs {fs} S {S} disagrees with "
+                                 "the card's")
+
+    # e. every deterministic transform on CUDA against the CPU, same draws
+    gen = torch.Generator().manual_seed(10)
+    for B, P in ((128, 32), (16, 448)):
+        x = torch.rand((B, P, P, 3), generator=gen) * 255
+        worst = []
+        for name, (fn, tol) in transform_cases(x, gen).items():
+            err = float((fn(x.to(dev)).cpu() - fn(x)).abs().max())
+            worst.append(f"{name} {err:.2g}")
+            if err > tol:
+                raise AssertionError(f"transform {name} at {B} x {P}^2: "
+                                     f"CUDA is {err} off the CPU (tolerance "
+                                     f"{tol})")
+        print(f"  e. transforms on {dev.type} against the CPU, {B} x {P}^2, "
+              "max |d|: " + ", ".join(worst), flush=True)
+    x = torch.rand((128, 224, 224, 3), generator=gen).to(dev) * 255
+    dgen = torch.Generator(device=dev).manual_seed(11)
+    aug = TR.compose(
+        lambda y: TR.random_affine(dgen, y, 15.0, (0.1, 0.1), (0.9, 1.1),
+                                   5.0),
+        lambda y: TR.color_jitter(dgen, y, 0.4, 0.4, 0.4, 0.1),
+        lambda y: TR.random_hflip(dgen, y),
+        lambda y: TR.gaussian_noise(dgen, y, std=5.0))
+    ms = host_ms(lambda: aug(x), dev, reps=5)
+    print(f"  e. [{card}] random_affine -> color_jitter -> random_hflip -> "
+          f"gaussian_noise on 128 x 224^2: {ms:.2f} ms, "
+          f"{128e3 / ms:.0f} images per s", flush=True)
+
+    # f. an Imagenette folder through a few train steps of ResNet18qat
+    if not have_pil:
+        print("  f. Pillow is not installed: the folder and manifest "
+              "loaders ran in the CPU tests only", flush=True)
+        return
+    shutil.rmtree(FOLDER_DIR, ignore_errors=True)
+    t = time.time()
+    write_imagenette(FOLDER_DIR, dev, FOLDER_IMAGES)
+    print(f"  f. [{card}] Imagenette fixture (10 classes of 500 x 375 PNGs, "
+          f"{FOLDER_IMAGES}): {time.time() - t:.1f} s", flush=True)
+    t = time.time()
+    res = TRAIN.main(FOLDER_TRAIN_ARGS + device_args + [
+        "--checkpoint_dir", os.path.join(ROOT, "build", "phase8_r18")])
+    print(f"  f. [{card}] train Imagenette (ResNet18qat 64 x 56^2 on 448^2 "
+          f"crops, batch 16): {res['steps']} steps in {res['epoch_s'][0]:.2f}"
+          f" s, val top-1 {res['best_val']:.3f} %, test top-1 "
+          f"{res['test_top1']:.3f} % ({res['test_total']} images); "
+          f"{time.time() - t:.1f} s in all", flush=True)
+    n_train = 10 * FOLDER_IMAGES["train"]
+    if res["steps"] != (n_train - int(np.ceil(0.1 * n_train))) // 16 or \
+            res["test_total"] != 10 * FOLDER_IMAGES["val"]:
+        raise AssertionError("the Imagenette run took other steps or "
+                             "tested other images")
+
+
 def main():
     with Phase("0 device"):
         if not torch.cuda.is_available():
@@ -958,8 +1301,14 @@ def main():
               f"{torch.cuda.get_device_name(0)}", flush=True)
 
     with Phase("1 build"):
-        secs = K.build_kernels()
-        print(f"kernel build: {secs:.1f} s", flush=True)
+        from concurrent.futures import ThreadPoolExecutor
+
+        from dct_cryptonets_tpu_torch.data import native as NATIVE
+        with ThreadPoolExecutor(1) as pool:
+            codec = pool.submit(NATIVE.library_path)
+            secs = K.build_kernels()
+            print(f"kernel build: {secs:.1f} s; native host codec: "
+                  f"{codec.result()}", flush=True)
         for line in K.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 print("  " + line.strip(), flush=True)
@@ -983,6 +1332,15 @@ def main():
         train_launches = K.launch_counts()
         print(f"  kernel launches in phase 7: {train_launches}", flush=True)
 
+    have_pil = importlib.util.find_spec("PIL") is not None
+    with Phase("8 datasets, transforms, native codec"):
+        K.reset_launch_counts()
+        phase_data(dev, card, have_pil)
+        data_launches = K.launch_counts()
+        print(f"  kernel launches in phase 8: {data_launches}", flush=True)
+        if any(data_launches.values()):
+            raise AssertionError("phase 8 launched a CMUX kernel")
+
     def timing(name, lat):
         ms, plain, lib, M, drop, cross = record[name][lat]
         J, N, rows, _ = LATTICES[lat.split()[0]]
@@ -996,7 +1354,8 @@ def main():
         by_path = {"image, drop_policy none": launches[name],
                    "image, drop_policy audit": audited_launches[name],
                    "s2d chunks": s2d_launches[name],
-                   "training, compile and simulate": train_launches[name]}
+                   "training, compile and simulate": train_launches[name],
+                   "datasets, transforms, native codec": data_launches[name]}
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": replaces, "launches": sum(by_path.values()),
                  "launches_by_path": by_path,

@@ -41,7 +41,7 @@ def parse_args(script: str, argv=None):
     g.add_argument("--mesh", default=None, type=str,
                    help="data-parallel mesh size, e.g. '8' (default: all devices)")
     g.add_argument("--profile_dir", default=None, metavar="PATH",
-                   help="write a jax.profiler trace (TensorBoard/Perfetto) "
+                   help="write a torch.profiler trace (TensorBoard/Perfetto) "
                         "of the whole run to this directory — the "
                         "framework's replacement for the reference's "
                         "wall-clock-only spans (SURVEY §5 tracing)")

@@ -33,8 +33,10 @@ Without ``--checkpoint_path`` the model is drawn at random (seed 0),
 calibrated and given one train-mode forward for its BatchNorm statistics,
 as the JAX package's CLI does.  A model without "qat" in its name (ResNet20,
 ResNet18) is compiled by post-training quantization
-(``compile_ptq_model``).  Not yet ported: the CIFAR-10, ImageNet and
-folder or manifest datasets, ``--mesh`` and ``--profile_dir``.
+(``compile_ptq_model``).  ``--dataset cifar10`` (the default) reads the
+python-pickle batches under ``--dataset_path``; ImageNet, Imagenette and
+miniImagenet read ImageFolder splits.  ``--profile_dir DIR`` writes a
+``torch.profiler`` trace of the run into DIR.  Not yet ported: ``--mesh``.
 """
 import json
 import os
@@ -53,7 +55,7 @@ from .fhe.runtime import (CompiledModule, compile_ptq_model,
                           compile_qat_model, default_device)
 from .models.resnet import (ModelSpec, QATResNet, build_spec,
                             calibrate_scales, init_model, model_summary)
-from .utils import AverageMeter, topk_accuracy
+from .utils import AverageMeter, run_profiled, topk_accuracy
 
 
 @torch.no_grad()
@@ -156,9 +158,8 @@ def prepare(cfg, device=None) -> Session:
     device = torch.device(device or cfg.device)
     if device.type == "cuda":
         device = default_device()        # raises without a GPU
-    for flag in ("mesh", "profile_dir"):
-        if getattr(cfg, flag, None):
-            raise NotImplementedError(f"--{flag} is not yet ported")
+    if cfg.mesh:
+        raise NotImplementedError("--mesh is not yet ported")
     img = cfg.image_size_dct if cfg.dct_status else cfg.image_size
     in_ch = cfg.channels if cfg.dct_status else 3
     spec = build_spec(cfg.model, in_channels=in_ch, img_size=img,
@@ -221,7 +222,10 @@ def prepare(cfg, device=None) -> Session:
 
 
 def main(argv=None):
-    cfg = parse_args("homomorphic_eval", argv)
+    return run_profiled(parse_args("homomorphic_eval", argv), main_impl)
+
+
+def main_impl(cfg):
     s = prepare(cfg)
     module = s.module
 

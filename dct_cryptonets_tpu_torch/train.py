@@ -18,8 +18,9 @@ Run (the flagship recipe; on the GPU unless ``--device cpu``):
       --image_size_dct 16 --batch_size 128 --test_batch_size 256 \\
       --lr 0.001 --optimizer adam --stop_epoch 30
 
-Not yet ported: ``--mesh``, ``--profile_dir`` and the example and
-confusion plots (the JAX package's ``viz.py``).
+``--profile_dir DIR`` writes a ``torch.profiler`` trace of the run into
+DIR.  Not yet ported: ``--mesh`` and the example and confusion plots (the
+JAX package's ``viz.py``).
 """
 import json
 import os
@@ -40,7 +41,8 @@ from .ops.quant import true_div
 from .models.resnet import (QATResNet, build_spec, calibrate_scales,
                             fp32_convolutions, init_model, model_summary,
                             tree_leaves)
-from .utils import AverageMeter, EarlyStopper, step_decay_lr, topk_accuracy
+from .utils import (AverageMeter, EarlyStopper, run_profiled, step_decay_lr,
+                    topk_accuracy)
 
 
 def make_optimizer(cfg, lr, params) -> torch.optim.Optimizer:
@@ -148,8 +150,7 @@ def evaluate(model, ingest, ds, idx, batch, device):
 
 
 def main(argv=None):
-    cfg = parse_args("train", argv)
-    return main_impl(cfg)
+    return run_profiled(parse_args("train", argv), main_impl)
 
 
 def main_impl(cfg):
@@ -159,9 +160,8 @@ def main_impl(cfg):
     device = torch.device(cfg.device)
     if device.type == "cuda":
         device = default_device()        # raises without a GPU
-    for flag in ("mesh", "profile_dir"):
-        if getattr(cfg, flag, None):
-            raise NotImplementedError(f"--{flag} is not yet ported")
+    if cfg.mesh:
+        raise NotImplementedError("--mesh is not yet ported")
     ckpt_dir = checkpoint_dir_for(cfg)
     os.makedirs(ckpt_dir, exist_ok=True)
     print(f"Checkpoint dir: {ckpt_dir}")

@@ -1,7 +1,10 @@
 """Training utilities, the port's copy of ``dct_cryptonets_tpu.utils``:
 meters, early stopping, top-k accuracy and the step-decay LR (behavioral
-parity with the reference's utils.py:74-138), host-side numpy."""
+parity with the reference's utils.py:74-138), host-side numpy; and the
+CLIs' ``--profile_dir`` wrapper (:func:`run_profiled`)."""
 import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
 
 class AverageMeter:
@@ -79,3 +82,23 @@ def step_decay_lr(base_lr, schedule, gamma, epoch):
             if epoch + 1 >= e:
                 lr *= gamma
     return lr
+
+
+def run_profiled(cfg, main_impl):
+    """``main_impl(cfg)``, under ``torch.profiler`` when ``cfg.profile_dir``
+    is set, as the JAX CLIs run it under ``jax.profiler.trace``: the host's
+    operators, and the card's kernels when the run is on CUDA, written as
+    one Chrome/TensorBoard trace (``*.pt.trace.json``) into that
+    directory."""
+    if not getattr(cfg, "profile_dir", None):
+        return main_impl(cfg)
+    activities = [ProfilerActivity.CPU]
+    if cfg.device == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    out_dir, cfg.profile_dir = cfg.profile_dir, None
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(out_dir)):
+        result = main_impl(cfg)
+        if cfg.device == "cuda":
+            torch.cuda.synchronize()
+    return result

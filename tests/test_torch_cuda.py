@@ -2,9 +2,10 @@
 build_bigd_strips, K3 fused_external, K4 combine_accumulate, K5
 rotate_diff) against their plain PyTorch versions on the card, and the
 engines against each other, bit for bit; the clear QAT model's classes on
-the card against the CPU's; and the trainer's step and augmented ingest on
-the card against the CPU's.  Every test here needs an NVIDIA GPU and skips
-on the CPU.
+the card against the CPU's; the trainer's step and augmented ingest on
+the card against the CPU's; the batched transforms on the card against
+the CPU's, and the native host codec against the card's ingest.  Every
+test here needs an NVIDIA GPU and skips on the CPU.
 
 This file imports no JAX and nothing of the JAX package, so it also runs
 on a machine without them:
@@ -428,3 +429,37 @@ def test_dct_ingest_train_on_the_card_matches_the_cpu(card):
     a = PC.dct_ingest_train(torch.Generator().manual_seed(5), x.to(card),
                             cfg)
     assert a.is_cuda and a.shape == (32, 16, 16, 24)
+
+
+@pytest.mark.parametrize("B,P", [(128, 32), (16, 448)])
+def test_transforms_on_the_card_match_the_cpu(card, B, P):
+    """Every deterministic transform of ``data/transforms.py`` on the card
+    against the CPU, on the same draws from a CPU generator, within the
+    tolerances ``chip_smoke.transform_cases`` states (bit for bit where
+    no float32 sum or library function differs)."""
+    import chip_smoke
+
+    g = torch.Generator().manual_seed(P)
+    x = torch.rand((B, P, P, 3), generator=g) * 255
+    for name, (fn, tol) in chip_smoke.transform_cases(x, g).items():
+        err = float((fn(x.to(card)).cpu() - fn(x)).abs().max())
+        assert err <= tol, (name, err, tol)
+
+
+@pytest.mark.parametrize("fs,S,ch", [(4, 16, 24), (8, 56, 64)])
+def test_native_codec_matches_the_cards_ingest(card, fs, S, ch):
+    """The native host codec (built into build/native/) against the card's
+    ``dct_from_pixels`` at the CIFAR and the ResNet18 presets, at
+    tests/test_native_codec.py's tolerance (99 % of elements within 5e-2,
+    none off by 2 or more)."""
+    from dct_cryptonets_tpu_torch.data import native as NATIVE
+    from dct_cryptonets_tpu_torch.data.codec import (CodecConfig,
+                                                     dct_from_pixels)
+
+    cfg = CodecConfig(ch, fs, S)
+    imgs = np.random.default_rng(fs).integers(
+        0, 256, (8, cfg.pixel_size, cfg.pixel_size, 3)).astype(np.uint8)
+    host = NATIVE.dct_ingest_native(imgs, cfg)
+    dev = dct_from_pixels(torch.as_tensor(imgs, device=card), cfg)
+    diff = np.abs(host - dev.cpu().numpy())
+    assert (diff < 5e-2).mean() > 0.99 and diff.max() < 2.0
