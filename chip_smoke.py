@@ -35,8 +35,10 @@ Phases, each printed with its elapsed seconds; any failure exits nonzero:
      kernel engine equal to the s2d engine on one production bootstrap
      chunk at (drop 2, cross 1) and one 2-bit clear_low_bits chunk at the
      extraction knob (2, 1) with truncated keyswitches (5, 3) and keep_low 1;
-  5. the slice: one synthetic image through forward(fhe="execute") and
-     forward(fhe="simulate"), same class, K1-K3 launched;
+  5. the slice: one synthetic image through forward(fhe="execute") on the
+     mesh path (shard_over(data_mesh(1)): one entry on the card, sharing
+     the module's keys) and forward(fhe="simulate"), same class, K1-K3
+     launched;
   6. the audited slice: the same image under drop_policy="audit" (p_error
      0.01, phase 3's keys) through forward(fhe="execute", drop_limbs=0,
      check_ref=True), as the driver's --drop_policy audit runs it: the
@@ -76,7 +78,23 @@ Phases, each printed with its elapsed seconds; any failure exits nonzero:
      the same draws (128 x 32^2 and 16 x 448^2), and one composed
      augmentation timed on 128 x 224^2; and, where Pillow is installed, an
      Imagenette folder fixture (10 classes of 500 x 375 PNGs) through a
-     few ``train.main`` steps of ResNet18qat at the ResNet18 preset.
+     few ``train.main`` steps of ResNet18qat at the ResNet18 preset;
+  9. the sharded paths: a. phase 5's image ran on the mesh path; phase 3's
+     server keys, one production chunk per lattice, a training batch and
+     a ResNet18-preset image go under build/phase9/ with their one-process
+     results; then two processes on the one card (``parallel.initialize``,
+     gloo, both on cuda:0): b. rank 0 loads the keys and ``shard_over``
+     broadcasts them; each rank bootstraps its 2,048 of the 4,096-
+     ciphertext preset-6 chunk and clears 2 bits of its half of the
+     extraction chunk at the audit's knob (2, 1) with keyswitch drops
+     (5, 3); the gathered outputs equal the one-process ones bit for bit,
+     K1-K3 launched on each rank; c. one float64 Adam step of the
+     flagship recipe (batch 128 as 64 + 64, augmentation on) within 1e-9
+     of the one-process step; d. ``dct_ingest_sharded`` at the ResNet18
+     preset (fs 8, S 56, 64 ch, one 448-pixel image) over the two
+     processes and over a 4-entry one-card mesh, equal to ``dct_ingest``
+     bit for bit.  Each part is timed; the ranks are joined with a
+     timeout and a failure in either fails the phase.
 
 The second-to-last line is the kernels' JSON record, the last line the
 device record.
@@ -635,16 +653,29 @@ def profile_chunk(fn, what, card):
 
 
 def phase_slice(s, dev):
-    """One synthetic test image through forward(fhe="execute") and
-    forward(fhe="simulate").  Returns the kernels' launch counts of the
-    execute run."""
+    """One synthetic test image through forward(fhe="execute") on the mesh
+    path (``shard_over(data_mesh(1))``: one entry on the card, sharing the
+    module's keys, so no key is copied) and forward(fhe="simulate").
+    Returns the kernels' launch counts of the execute run and its
+    seconds."""
     from dct_cryptonets_tpu_torch.fhe import Csprng
+    from dct_cryptonets_tpu_torch.parallel import data_mesh
 
     m = s.module
     images, labels = s.testset.gather(s.test_idx[:1])
     x = s.ingest(images).cpu().numpy()
+    mesh = data_mesh(1)
+    m.shard_over(mesh)
+    shared = all(a is b for a, b in zip(m.replicas[1][0][0], m.device_keys))
+    print(f"  mesh path: {mesh.size} entry on {mesh.devices[0]}, keys shared "
+          f"with the module: {shared}", flush=True)
+    if not shared:
+        raise AssertionError("a one-entry mesh on the module's card copied "
+                             "its keys")
     K.reset_launch_counts()
-    feats = m.forward(x, fhe="execute", enc_rng=Csprng(5))
+    t = time.time()
+    feats = m.forward(x, fhe="execute", mesh=mesh, enc_rng=Csprng(5))
+    secs = time.time() - t
     launches = K.launch_counts()
     sim = m.forward(x, fhe="simulate")
     st = m.stats
@@ -672,7 +703,7 @@ def phase_slice(s, dev):
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
-    return launches
+    return launches, secs
 
 
 def phase_audited(s, dev, drop_limbs=0, enforce=True):
@@ -1282,6 +1313,295 @@ def phase_data(dev, card, have_pil):
                              "tested other images")
 
 
+PHASE9_DIR = os.path.join(ROOT, "build", "phase9")
+PHASE9_TIMEOUT = 110            # seconds the two ranks may take together
+PHASE9_PBS = (6, 51)            # table bits and output scale of the chunk
+PHASE9_CLEAR = (10, 2, (2, 1, 5, 3, 0))   # n_in, bits, extraction knobs
+RESNET18_PRESET = (64, 8, 56)   # channels, filter size, S (448-px crops)
+
+
+def train_step_f64(params, state, images, labels, dev, rows=None):
+    """One Adam step of the flagship recipe (``TRAIN_ARGS``: augmentation
+    on, generator 1234 as the trainer's) in float64 on ``dev``; with
+    ``rows``, this rank's rows of a step over the initialized process
+    group.  Returns (loss, params, state, this rank's ingested input)."""
+    import torch.distributed as dist
+
+    from dct_cryptonets_tpu_torch import train as TRAIN
+    from dct_cryptonets_tpu_torch.data.codec import CodecConfig
+    from dct_cryptonets_tpu_torch.models.resnet import QATResNet, build_spec
+
+    cfg = TRAIN.parse_args("train", TRAIN_ARGS)
+    spec = build_spec("ResNet20qat", in_channels=24, img_size=16)
+    ingest = TRAIN.make_ingest(cfg, CodecConfig(24, 4, 16), dev)
+    gen = torch.Generator().manual_seed(1234)
+    x = ingest(images, train=True, generator=gen, rows=rows)
+    y = torch.as_tensor(labels.astype(np.int64), device=dev)
+    model = QATResNet.from_params(params, state, spec).to(dev, torch.float64)
+    shard = None
+    if rows is not None:
+        model.data_parallel(dist.group.WORLD)
+        y, shard = y[rows], (rows, len(labels))
+    opt = TRAIN.make_optimizer(cfg, cfg.lr, model.parameters())
+    loss, _ = TRAIN.train_step(model, opt, cfg, x.double(), y, gen, shard)
+    return float(loss), *model.to_params(), x.cpu().numpy()
+
+
+def phase9_inputs(s, dev):
+    """Phase 9's inputs and the one-process results the two ranks are held
+    to, under build/phase9/: phase 3's server keys as numpy, one
+    production chunk per lattice and its unsharded output (kernel engine),
+    the training step's inputs and its one-process float64 step, and the
+    ResNet18-preset image and its unsharded ingest.  Returns the
+    one-process seconds of each part."""
+    from dct_cryptonets_tpu_torch.data import pipeline
+    from dct_cryptonets_tpu_torch.data.codec import CodecConfig, dct_ingest
+    from dct_cryptonets_tpu_torch.fhe import encrypt_lwe
+    from dct_cryptonets_tpu_torch.fhe import pbs as P
+    from dct_cryptonets_tpu_torch.models.resnet import (build_spec,
+                                                        calibrate_scales,
+                                                        init_model)
+    from dct_cryptonets_tpu_torch.parallel import data_mesh
+    from dct_cryptonets_tpu_torch.data import dct_ingest_sharded
+
+    m = s.module
+    par, cfg, ck = m.params, m.exact_cfg, m.client_keys
+    os.makedirs(PHASE9_DIR, exist_ok=True)
+    secs = {}
+    keys = {f"main_{k}": v for k, v in m.device_keys._asdict().items()}
+    keys.update({f"aux_{k}": v for k, v in m.aux_keys._asdict().items()})
+    nbytes = 0
+    for k, v in keys.items():
+        np.save(os.path.join(PHASE9_DIR, f"{k}.npy"), v.cpu().numpy())
+        nbytes += v.numel() * v.element_size()
+    rng = np.random.default_rng(19)
+    r, out_log2 = PHASE9_PBS
+    n_in, shift, knobs = PHASE9_CLEAR
+
+    def fresh(msgs, delta_log2):
+        return encrypt_lwe(ck, msgs.astype(np.uint64) << np.uint64(
+            delta_log2), rng, key=ck.big_lwe_key,
+            noise_log2=par.glwe_noise_log2).view(np.int64)
+
+    chunks = {"main_ct": fresh(rng.integers(0, 2 ** r, IMAGE_M), 64 - r - 1),
+              "main_tables": rng.integers(-2 ** 11, 2 ** 11, (
+                  IMAGE_M, 2 ** r)).astype(np.int32),
+              "aux_ct": fresh(rng.integers(0, 1 << n_in, IMAGE_M),
+                              63 - n_in)}
+    t = {k: torch.as_tensor(v, device=dev) for k, v in chunks.items()}
+    chunks["main_out"], secs["bootstrap chunk"] = common.timed(
+        lambda: P.bootstrap(t["main_ct"], t["main_tables"], m.device_keys,
+                            par, out_log2).cpu().numpy(), dev)
+    chunks["aux_out"], secs["clear_low_bits chunk"] = common.timed(
+        lambda: P.clear_low_bits(
+            t["aux_ct"], m.aux_keys, cfg.aux, n_in, shift, cfg.back_base_log,
+            cfg.back_levels, *knobs).cpu().numpy(), dev)
+
+    spec = build_spec("ResNet20qat", in_channels=24, img_size=16)
+    ds = pipeline.get_dataset("digits", None, True, image_size=64)
+    params, state = init_model(spec)
+    params = calibrate_scales(params, state, dct_ingest(
+        ds.images[:64], CodecConfig(24, 4, 16)), spec)
+    images, labels = ds.images[64:192], ds.labels[64:192]
+    step, secs["train step"] = common.timed(lambda: train_step_f64(
+        params, state, images, labels, dev), dev)
+
+    ch, fs, S = RESNET18_PRESET
+    icfg = CodecConfig(ch, fs, S)
+    img = np.random.default_rng(20).integers(
+        0, 256, (1, fs * S, fs * S, 3)).astype(np.uint8)
+    ref = dct_ingest(torch.as_tensor(img, device=dev), icfg)
+    one_card = dct_ingest_sharded(torch.as_tensor(img, device=dev), icfg,
+                                  data_mesh(4))
+    print(f"  ingest at the ResNet18 preset, 4-entry one-card mesh == "
+          f"dct_ingest: {torch.equal(one_card, ref)}", flush=True)
+    if not torch.equal(one_card, ref):
+        raise AssertionError("the sharded ingest on a 4-entry one-card mesh "
+                             "differs from dct_ingest")
+    np.savez(os.path.join(PHASE9_DIR, "chunks.npz"), **chunks)
+    with open(os.path.join(PHASE9_DIR, "inputs.pkl"), "wb") as fh:
+        pickle.dump({"par": par, "exact_cfg": cfg, "params": params,
+                     "state": state, "images": images, "labels": labels,
+                     "step": step, "image": img,
+                     "ingest": ref.cpu().numpy(), "key_bytes": nbytes}, fh)
+    print(f"  one process: {secs['bootstrap chunk']:.2f} s bootstrap chunk "
+          f"(M={IMAGE_M}), {secs['clear_low_bits chunk']:.2f} s "
+          f"clear_low_bits chunk ({shift} bits at aux {knobs[:2]}, "
+          f"keyswitch drops {knobs[2:4]}), {secs['train step']:.2f} s "
+          f"float64 train step (batch {len(labels)}); key bytes "
+          f"{nbytes / 1e6:.1f} MB", flush=True)
+    return secs
+
+
+def phase9_worker(rank, address):
+    """One of the two ranks on the one card (gloo): key broadcast, its half
+    of each production chunk, one data-parallel train step and the
+    sharded ingest over the two processes; rank 0 checks the gathered
+    results against the one-process ones and writes result.json."""
+    import torch.distributed as dist
+
+    from dct_cryptonets_tpu_torch.data import dct_ingest_sharded
+    from dct_cryptonets_tpu_torch.data.codec import CodecConfig
+    from dct_cryptonets_tpu_torch.fhe import pbs as P
+    from dct_cryptonets_tpu_torch.fhe.runtime import CompiledModule
+    from dct_cryptonets_tpu_torch.models.resnet import tree_leaves
+    from dct_cryptonets_tpu_torch.parallel import (global_data_mesh,
+                                                   initialize, shard_batch)
+    from dct_cryptonets_tpu_torch.parallel.distributed import shutdown
+    from dct_cryptonets_tpu_torch.parallel.mesh import run_sharded, shard_rows
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend = initialize(address, 2, rank, devices=[dev],
+                         timeout=PHASE9_TIMEOUT)
+    if backend != "gloo":
+        raise AssertionError(f"two ranks on one card ran {backend}")
+    K.build_kernels()                       # phase 1's build, loaded
+    with open(os.path.join(PHASE9_DIR, "inputs.pkl"), "rb") as fh:
+        inp = pickle.load(fh)
+    par, cfg = inp["par"], inp["exact_cfg"]
+    mesh = global_data_mesh()
+    times = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = time.time() - t
+        dist.barrier()
+        times[name + ", both ranks"] = time.time() - t
+        return out
+
+    m = CompiledModule(None, par, device=dev)
+    if rank == 0:
+        def load(prefix, cls):
+            return cls(*(torch.from_numpy(np.load(os.path.join(
+                PHASE9_DIR, f"{prefix}_{f}.npy"))).to(dev)
+                for f in cls._fields))
+        m.device_keys = load("main", P.DeviceServerKeys)
+        m.aux_keys = load("aux", P.DeviceAuxKeys)
+    timed("key broadcast", lambda: m.shard_over(mesh))
+    chunks = np.load(os.path.join(PHASE9_DIR, "chunks.npz"))
+    r, out_log2 = PHASE9_PBS
+    n_in, shift, knobs = PHASE9_CLEAR
+    main_ct, tables, aux_ct = shard_batch(mesh, (
+        chunks["main_ct"], chunks["main_tables"], chunks["aux_ct"]))
+    K.reset_launch_counts()
+    boot = timed("bootstrap chunk", lambda: run_sharded(
+        mesh, lambda c, t, k: P.bootstrap(c, t, k[0], par, out_log2),
+        main_ct, tables, m.replicas[1]))
+    clear = timed("clear_low_bits chunk", lambda: run_sharded(
+        mesh, lambda c, k: P.clear_low_bits(
+            c, k[1], cfg.aux, n_in, shift, cfg.back_base_log,
+            cfg.back_levels, *knobs), aux_ct, m.replicas[1]))
+    counts = K.launch_counts()
+    boot, clear = boot.gather(), clear.gather()
+
+    rows = shard_rows(len(inp["labels"]), mesh, rank)
+    step = timed("train step", lambda: train_step_f64(
+        inp["params"], inp["state"], inp["images"], inp["labels"], dev,
+        rows))
+    ch, fs, S = RESNET18_PRESET
+    ingest = timed("sharded ingest", lambda: dct_ingest_sharded(
+        torch.as_tensor(inp["image"], device=dev), CodecConfig(ch, fs, S),
+        mesh))
+    all_counts, all_times = [None, None], [None, None]
+    dist.all_gather_object(all_counts, counts)
+    dist.all_gather_object(all_times, times)
+    if rank == 0:
+        ref = inp["step"]
+        d_loss = abs(step[0] - ref[0])
+        d_tree = max(float(np.max(np.abs(np.asarray(g) - np.asarray(w))))
+                     for g, w in zip(tree_leaves(step[1:3]),
+                                     tree_leaves(ref[1:3])))
+        d_x = float(np.max(np.abs(step[3] - ref[3][rows])))
+        res = {"backend": backend, "mesh": [str(d) for d in mesh.devices],
+               "ranks": list(mesh.ranks), "key_bytes": inp["key_bytes"],
+               "launches": all_counts, "times": all_times,
+               "bootstrap_equal": bool(np.array_equal(
+                   boot.cpu().numpy(), chunks["main_out"])),
+               "clear_low_bits_equal": bool(np.array_equal(
+                   clear.cpu().numpy(), chunks["aux_out"])),
+               "train_loss_diff": d_loss, "train_state_max_diff": d_tree,
+               "train_input_max_diff": d_x,
+               "ingest_equal": bool(np.array_equal(ingest.cpu().numpy(),
+                                                   inp["ingest"]))}
+        with open(os.path.join(PHASE9_DIR, "result.json"), "w") as fh:
+            json.dump(res, fh)
+    shutdown()
+
+
+def phase_sharded(s, dev, image_s):
+    """Phase 9: the sharded paths.  a. phase 5's image ran on the mesh
+    path; b.-d. two processes on the one card (gloo) against the
+    one-process results.  Returns both ranks' launch counts, summed."""
+    from dct_cryptonets_tpu_torch.parallel.distributed import free_port
+
+    t = time.time()
+    one = phase9_inputs(s, dev)
+    print(f"  a. flagship image on the mesh path (phase 5): {image_s:.1f} s;"
+          f" inputs and one-process results: {time.time() - t:.1f} s",
+          flush=True)
+    result = os.path.join(PHASE9_DIR, "result.json")
+    if os.path.exists(result):
+        os.remove(result)
+    t = time.time()
+    ctx = torch.multiprocessing.start_processes(
+        phase9_worker, args=(f"localhost:{free_port()}",), nprocs=2,
+        join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=1):
+            if time.time() - t > PHASE9_TIMEOUT:
+                raise TimeoutError(f"phase 9's ranks ran over "
+                                   f"{PHASE9_TIMEOUT} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    with open(result) as fh:
+        res = json.load(fh)
+    print(f"  two ranks ({res['backend']}, mesh {res['mesh']}, ranks "
+          f"{res['ranks']}): {time.time() - t:.1f} s with start-up",
+          flush=True)
+    for rank, times in enumerate(res["times"]):
+        print(f"  rank {rank}: " + ", ".join(
+            f"{k} {v:.2f} s" for k, v in times.items()), flush=True)
+    t0 = res["times"][0]
+    print(f"  b. key broadcast: {res['key_bytes'] / 1e6:.1f} MB in "
+          f"{t0['key broadcast, both ranks']:.2f} s; bootstrap chunk "
+          f"(M={IMAGE_M}): two ranks {t0['bootstrap chunk, both ranks']:.2f}"
+          f" s, one rank {one['bootstrap chunk']:.2f} s; clear_low_bits "
+          f"chunk: two ranks {t0['clear_low_bits chunk, both ranks']:.2f} s,"
+          f" one rank {one['clear_low_bits chunk']:.2f} s; gathered == "
+          f"unsharded: bootstrap {res['bootstrap_equal']}, clear_low_bits "
+          f"{res['clear_low_bits_equal']}; launches per rank "
+          f"{res['launches']}", flush=True)
+    print(f"  c. train step over two ranks: {t0['train step, both ranks']:.2f}"
+          f" s (one process {one['train step']:.2f} s); |loss - one "
+          f"process| {res['train_loss_diff']:.3g}, max |params, state - one "
+          f"process| {res['train_state_max_diff']:.3g}, max |input - one "
+          f"process's rows| {res['train_input_max_diff']:.3g}", flush=True)
+    print(f"  d. sharded ingest over the two ranks at the ResNet18 preset "
+          f"== dct_ingest: {res['ingest_equal']} "
+          f"({t0['sharded ingest, both ranks']:.2f} s)", flush=True)
+    bad = [k for k in ("bootstrap_equal", "clear_low_bits_equal",
+                       "ingest_equal") if not res[k]]
+    if bad:
+        raise AssertionError(f"phase 9: sharded != unsharded: {bad}")
+    if max(res["train_loss_diff"], res["train_state_max_diff"]) > 1e-9:
+        raise AssertionError("phase 9: the two-rank train step is off the "
+                             "one-process step by more than 1e-9")
+    missing = [(r, k) for r, c in enumerate(res["launches"])
+               for k in FUSED_KERNELS if c[k] == 0]
+    if missing:
+        raise AssertionError(f"phase 9: kernels not launched: {missing}")
+    return {k: sum(c[k] for c in res["launches"]) for k in KERNELS}
+
+
 def main():
     with Phase("0 device"):
         if not torch.cuda.is_available():
@@ -1322,8 +1642,8 @@ def main():
         phase_pbs(s.module, dev)
     with Phase("4 s2d engine, profile"):
         s2d_launches = phase_s2d(s.module, dev, card)
-    with Phase("5 flagship image"):
-        launches = phase_slice(s, dev)
+    with Phase("5 flagship image (mesh path)"):
+        launches, image_s = phase_slice(s, dev)
     with Phase("6 audited flagship image"):
         audited_launches, _ = phase_audited(s, dev)
     with Phase("7 train on the card"):
@@ -1340,6 +1660,8 @@ def main():
         print(f"  kernel launches in phase 8: {data_launches}", flush=True)
         if any(data_launches.values()):
             raise AssertionError("phase 8 launched a CMUX kernel")
+    with Phase("9 sharded paths"):
+        sharded_launches = phase_sharded(s, dev, image_s)
 
     def timing(name, lat):
         ms, plain, lib, M, drop, cross = record[name][lat]
@@ -1351,11 +1673,14 @@ def main():
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():
-        by_path = {"image, drop_policy none": launches[name],
+        by_path = {"image on the mesh path, drop_policy none":
+                   launches[name],
                    "image, drop_policy audit": audited_launches[name],
                    "s2d chunks": s2d_launches[name],
                    "training, compile and simulate": train_launches[name],
-                   "datasets, transforms, native codec": data_launches[name]}
+                   "datasets, transforms, native codec": data_launches[name],
+                   "two ranks on one card, sharded chunks":
+                       sharded_launches[name]}
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": replaces, "launches": sum(by_path.values()),
                  "launches_by_path": by_path,

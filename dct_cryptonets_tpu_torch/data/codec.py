@@ -29,7 +29,9 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.dct import blockwise_dct2
-from ..ops.jpegdct import jpeg_q100_coefficients
+from ..ops.jpegdct import (fdct_islow_q100_tiles, h2v2_downsample,
+                           jpeg_q100_coefficients, rgb_to_ycbcr_libjpeg)
+from ..parallel.mesh import shard_batch
 from .tables import normalization_stats, subset_indices
 
 
@@ -186,6 +188,72 @@ def dct_ingest(images_u8, cfg: CodecConfig) -> torch.Tensor:
                                              cfg.pixel_size), cfg)
 
 
+def dct_ingest_sharded(images_u8, cfg: CodecConfig, mesh) -> torch.Tensor:
+    """DCT-tile-parallel eval ingest, counterpart of the JAX
+    ``dct_ingest_sharded``: the S_f x S_f tile grid of the whole batch
+    (every image's tiles flattened, so one image's grid spreads over the
+    mesh) is zero-padded to a multiple of the mesh and sharded over it
+    (``parallel.Mesh``); each entry runs the per-tile DCT and the static
+    channel selection on its shard, and only the selected channels are
+    gathered (an all-gather when the mesh spans processes).  The pixel
+    prologue (resize, crop, color conversion, chroma downsample) and the
+    upscale / normalize epilogue run on the input's device for the whole
+    batch.  Equal to :func:`dct_ingest` bit for bit; returns float32
+    (B, S, S, C) on the input tensor's device."""
+    x = _eval_resize_crop(_as_tensor(images_u8), cfg.pixel_size)
+    dev = x.device
+    S, S_f = cfg.image_size_dct, cfg.filter_size
+    if S_f == 8:
+        y, cb, cr = rgb_to_ycbcr_libjpeg(x)
+        cb, cr = h2v2_downsample(cb), h2v2_downsample(cr)
+        tile_fn = fdct_islow_q100_tiles
+
+        def post(c):
+            return _upscale_coeffs_i16(c, S)
+    else:
+        ycc = rgb_to_ycrcb_cv(x)
+        hh, hw = x.shape[-3] // 2, x.shape[-2] // 2
+        y = ycc[..., 0]
+        cb = resize_linear_u8_cv(ycc[..., 1], hh, hw)
+        cr = resize_linear_u8_cv(ycc[..., 2], hh, hw)
+
+        def tile_fn(tiles):
+            # each tile is a plane of one S_f x S_f block
+            c = blockwise_dct2(tiles, S_f, level_shift=True)
+            return c.reshape(c.shape[0], S_f * S_f)
+
+        def post(c):
+            if c.shape[-3] != S or c.shape[-2] != S:
+                c = resize_bilinear(c, S, S)
+            return c
+
+    def component(plane, idx):
+        B, H, W = plane.shape
+        nh, nw = H // S_f, W // S_f
+        tiles = plane.reshape(B, nh, S_f, nw, S_f).movedim(-3, -2)
+        tiles = tiles.reshape(B * nh * nw, S_f, S_f)
+        t = tiles.shape[0]
+        tiles = F.pad(tiles, (0, 0, 0, 0, 0, (-t) % mesh.size))
+        shards = shard_batch(mesh, tiles)
+        for i, part in shards.local():
+            sel = torch.as_tensor(idx, device=part.device)
+            shards.shards[i] = tile_fn(part)[:, sel]
+        out = shards.gather(dev)
+        # the upscale runs on all S_f^2 maps (the unselected ones zero), as
+        # in dct_ingest: the CPU's bilinear resize vectorizes over the
+        # channels, so its rounding depends on their count
+        sel = torch.as_tensor(idx, device=dev)
+        full = out.new_zeros((B, nh, nw, S_f * S_f))
+        full[..., sel] = out[:t].reshape(B, nh, nw, len(idx))
+        return post(full)[..., sel]
+
+    y_idx, cb_idx, cr_idx = cfg.subset()
+    agg = torch.cat([component(y, y_idx), component(cb, cb_idx),
+                     component(cr, cr_idx)], dim=-1)
+    mean, std = (torch.as_tensor(a, device=dev) for a in cfg.stats())
+    return (agg - mean) / std
+
+
 def _as_tensor(images) -> torch.Tensor:
     return images if isinstance(images, torch.Tensor) else \
         torch.as_tensor(np.asarray(images))
@@ -204,6 +272,11 @@ class TrainDraws:
     crop: tuple
     jitter: torch.Tensor
     flip: torch.Tensor
+
+    def take(self, rows) -> "TrainDraws":
+        """The draws of ``rows`` of the batch (a data-parallel shard)."""
+        return TrainDraws(tuple(c[rows] for c in self.crop),
+                          self.jitter[rows], self.flip[rows])
 
 
 def draw_train(generator: torch.Generator, B: int, H: int, W: int,
@@ -291,12 +364,17 @@ def augment(images_u8: torch.Tensor, draws: TrainDraws,
     return torch.clamp(torch.round(x), 0, 255)
 
 
+def _shard_draws(x, draws, rows):
+    return (x, draws) if rows is None else (x[rows], draws.take(rows))
+
+
 def dct_ingest_train(generator: torch.Generator, images_u8,
-                     cfg: CodecConfig) -> torch.Tensor:
+                     cfg: CodecConfig, rows=None) -> torch.Tensor:
     """Train-path ingest: RandomResizedCrop(P) -> jitter -> hflip -> DCT
-    (reference datamgr.py:150-191), on the images' device."""
+    (reference datamgr.py:150-191), on the images' device.  ``rows``: a
+    data-parallel shard's rows; the draws are the whole batch's, sliced."""
     x = _as_tensor(images_u8)
-    draws = draw_train(generator, *x.shape[:3])
+    x, draws = _shard_draws(x, draw_train(generator, *x.shape[:3]), rows)
     return dct_from_pixels(augment(x, draws, cfg.pixel_size), cfg)
 
 
@@ -333,12 +411,14 @@ def rgb_ingest(images_u8, image_size: int,
 
 
 def rgb_ingest_train(generator: torch.Generator, images_u8, image_size: int,
-                     dataset: str = "cifar10") -> torch.Tensor:
+                     dataset: str = "cifar10", rows=None) -> torch.Tensor:
     """RGB train-path ingest: RandomResizedCrop -> jitter (per dataset) ->
-    hflip -> Normalize (reference datamgr.py:69-80)."""
+    hflip -> Normalize (reference datamgr.py:69-80); ``rows`` as for
+    :func:`dct_ingest_train`."""
     x = _as_tensor(images_u8)
-    draws = draw_train(generator, *x.shape[:3],
-                       jitter=rgb_jitter_param(dataset))
+    x, draws = _shard_draws(x, draw_train(generator, *x.shape[:3],
+                                          jitter=rgb_jitter_param(dataset)),
+                            rows)
     return rgb_normalize(augment(x, draws, image_size), dataset)
 
 

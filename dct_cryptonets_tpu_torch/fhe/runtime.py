@@ -22,12 +22,15 @@ The module runs on CUDA unless the caller asks for the CPU
 (``device="cpu"``); without a GPU, :func:`default_device` raises.
 """
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from ..parallel.distributed import all_reduce, coll_device
+from ..parallel.mesh import process_rank, replicate, shard_batch, shard_rows
 from . import torus as T
 from .circuit import (AddScaled, AddScaledPC, Circuit, Conv, Output, PoolSum,
                       QuantIn, Rescale, Tlu, Window, simulate)
@@ -128,6 +131,9 @@ class CompiledModule:
     p_error: float = 0.01
     device: torch.device | None = None
     audit: AuditResult | None = field(default=None, repr=False)
+    # (mesh, parallel.Replicated of (device_keys, aux_keys)) after
+    # shard_over
+    replicas: tuple | None = field(default=None, repr=False)
 
     def __post_init__(self):
         if self.drop_policy not in DROP_POLICIES:
@@ -198,6 +204,11 @@ class CompiledModule:
         """Quantize + encrypt a float input batch (B, H, W, C) ->
         (B, n1, H, W, C) int64 on the module's device.  ``rng``: a
         :class:`Csprng` (default: fresh OS entropy)."""
+        return T.from_u64(self._encrypt_u64(x, rng), self.device)
+
+    def _encrypt_u64(self, x: np.ndarray, rng=None) -> np.ndarray:
+        """:meth:`encrypt`'s ciphertexts as uint64 (B, n1, H, W, C) on the
+        host."""
         rng = rng or Csprng(None)
         qin = self.circuit.ops[0]
         assert isinstance(qin, QuantIn)
@@ -209,7 +220,7 @@ class CompiledModule:
         ct = encrypt_lwe(self.client_keys, mu, rng,
                          key=self.client_keys.big_lwe_key,
                          noise_log2=self.params.glwe_noise_log2)
-        return T.from_u64(np.moveaxis(ct, -1, 1), self.device)
+        return np.moveaxis(ct, -1, 1)
 
     def _decode(self, ct: torch.Tensor, n: int) -> np.ndarray:
         """(B, n1, ...) ciphertexts -> signed ints at budget n, (B, ...)."""
@@ -403,8 +414,99 @@ class CompiledModule:
         n_big = self.params.big_lwe_dim + 1
         return out.reshape(B, H, W, C, n_big).permute(0, 4, 1, 2, 3)
 
+    # -- multi-device -----------------------------------------------------
     def shard_over(self, mesh):
-        raise NotImplementedError("shard_over is not yet ported")
+        """Place the module's server key material on a device mesh.
+
+        Server-side parallelism is ciphertext-batch data parallelism:
+        ``device_keys`` and ``aux_keys`` replicate onto every device of
+        the mesh (``parallel.replicate``: one copy per device; an entry on
+        the module's own device shares its keys, so a one-entry mesh there
+        copies nothing), and :meth:`forward` with ``mesh=mesh`` shards the
+        ciphertext batch.  When the mesh spans processes, every rank calls
+        this together and rank 0's keys are broadcast (the one-time key
+        broadcast); the other ranks may hold none.  The unsharded path
+        (``mesh=None``) keeps using ``device_keys`` as before."""
+        if process_rank() == 0:
+            assert self.device_keys is not None, "call keygen() first"
+        keys = replicate(mesh, (self.device_keys, self.aux_keys))
+        self.replicas = (mesh, keys)
+        return self
+
+    def _on_entry(self, mesh, i):
+        """This module on mesh entry i: its device and its key copies,
+        stats of its own."""
+        dk, ak = self.replicas[1][i]
+        return replace(self, device=mesh.devices[i], device_keys=dk,
+                       aux_keys=ak, stats={}, replicas=None)
+
+    def _run_sharded(self, ct: np.ndarray, drop_limbs, mesh,
+                     env_ref) -> torch.Tensor:
+        """run_encrypted on each of this process's shards of the uint64
+        ciphertext batch ``ct``, on the shard's device with its keys; the
+        outputs gathered (across processes too) and the stats merged (see
+        :meth:`forward`)."""
+        if self.replicas is None or self.replicas[0] != mesh:
+            raise ValueError("call shard_over(mesh) before forward(mesh=)")
+        if drop_limbs is None and self.drop_policy == "audit":
+            self.run_audit()
+        shards = shard_batch(mesh, np.ascontiguousarray(ct).view(np.int64))
+        stats = []
+        for i, part in shards.local():
+            sub = self._on_entry(mesh, i)
+            ref = None if env_ref is None else {
+                k: v[shard_rows(len(ct), mesh, i)] for k, v in env_ref.items()}
+            shards.shards[i] = sub.run_encrypted(part, drop_limbs,
+                                                 check_ref=ref)
+            stats.append(sub.stats)
+        self._merge_stats(stats, mesh)
+        return shards.gather()
+
+    _SUMMED = ("pbs_executed", "aux_pbs_executed", "tlu_slips", "tlu_sites")
+    _TIMERS = ("execute_time", "levelled_time", "pbs_time", "extract_time",
+               "audit_time")
+
+    def _merge_stats(self, stats: list, mesh):
+        """The shards' stats as one batch's: counts and slips summed over
+        the shards (all-reduced across processes), per-TLU slip detail
+        summed per TLU (its largest slip the maximum); timers summed over
+        this process's shards (they run one after another) and then the
+        maximum across processes (the slowest bounds the batch)."""
+        first = stats[0]
+        counts = [sum(st.get(k, 0) for st in stats) for k in self._SUMMED]
+        timers = [sum(st.get(k, 0.0) for st in stats) for k in self._TIMERS]
+        detail = None
+        if "tlu_slip_detail" in first:
+            rows = zip(*(st["tlu_slip_detail"] for st in stats))
+            detail = [(r[0][0], *(sum(x[j] for x in r) for j in (1, 2, 3)),
+                       max(x[4] for x in r)) for r in rows]
+        if mesh.spans_processes:
+            dev = coll_device()
+            c = torch.tensor(counts + [v for d in detail or ()
+                                       for v in d[1:4]],
+                             dtype=torch.int64, device=dev)
+            t = torch.tensor(timers + [d[4] for d in detail or ()],
+                             dtype=torch.float64, device=dev)
+            all_reduce(c)
+            all_reduce(t, dist.ReduceOp.MAX)
+            c, t = c.tolist(), t.tolist()
+            counts, timers = c[:len(counts)], t[:len(timers)]
+            if detail is not None:
+                detail = [(d[0], *c[len(counts) + 3 * j:len(counts) + 3 * j
+                                    + 3], int(t[len(timers) + j]))
+                          for j, d in enumerate(detail)]
+        merged = dict(zip(self._SUMMED, counts))
+        merged.update(zip(self._TIMERS, timers))
+        merged["aux_pbs_executed"] += self.stats.get("aux_pbs_executed", 0)
+        merged["pbs_per_sample"] = first["pbs_per_sample"]
+        merged["pbs_per_sec"] = (merged["pbs_executed"] / merged["pbs_time"]
+                                 if merged["pbs_time"] > 0 else None)
+        if detail is None:
+            for k in ("tlu_slips", "tlu_sites", "audit_time"):
+                merged.pop(k)
+        else:
+            merged["tlu_slip_detail"] = detail
+        self.stats.update(merged)
 
     # -- the reference-style entry point ----------------------------------
     def forward(self, x: np.ndarray, fhe: str = "simulate",
@@ -413,9 +515,23 @@ class CompiledModule:
         """x: float input batch (B, H, W, C) -> float features (B, F).
 
         fhe='simulate': bit-exact integer simulation (clear);
-        fhe='execute': encrypt -> encrypted eval -> decrypt."""
-        if mesh is not None:
-            raise NotImplementedError("mesh execution is not yet ported")
+        fhe='execute': encrypt -> encrypted eval -> decrypt.
+
+        ``mesh`` (execute; after :meth:`shard_over`): a remainder batch is
+        padded to a multiple of the mesh size by repeating its last
+        sample, the whole padded batch is encrypted (so ``enc_rng`` draws
+        what the unsharded run of it draws), each shard runs on its
+        entry's device, and the outputs are gathered, decrypted and cut
+        back to the batch.  With ``check_ref`` the padded batch is
+        simulated and each shard checked against its rows; the slip
+        counts in ``stats`` are then the whole batch's, and the timers
+        are summed over this process's shards and the largest across
+        processes.  Across processes every rank calls this with the same
+        batch and an ``enc_rng`` of the same seed."""
+        n = len(x)
+        if mesh is not None and fhe == "execute" and n % mesh.size:
+            x = np.concatenate([x, np.repeat(x[-1:], mesh.size - n % mesh.size,
+                                             axis=0)], axis=0)
         xt = torch.as_tensor(np.asarray(x, np.float32), device=self.device)
         if fhe == "simulate":
             return simulate(self.circuit, xt).cpu().numpy()
@@ -425,6 +541,10 @@ class CompiledModule:
             if check_ref:
                 _, env = simulate(self.circuit, xt, return_env=True)
                 env_ref = {k: v.cpu().numpy() for k, v in env.items()}
+            if mesh is not None:
+                ct = self._encrypt_u64(x, rng=enc_rng)
+                out = self._run_sharded(ct, drop_limbs, mesh, env_ref)
+                return self.decrypt_feats(out)[:n]
             ct = self.encrypt(x, rng=enc_rng)
             out = self.run_encrypted(ct, drop_limbs, check_ref=env_ref)
             return self.decrypt_feats(out)

@@ -36,7 +36,10 @@ ResNet18) is compiled by post-training quantization
 (``compile_ptq_model``).  ``--dataset cifar10`` (the default) reads the
 python-pickle batches under ``--dataset_path``; ImageNet, Imagenette and
 miniImagenet read ImageFolder splits.  ``--profile_dir DIR`` writes a
-``torch.profiler`` trace of the run into DIR.  Not yet ported: ``--mesh``.
+``torch.profiler`` trace of the run into DIR.  ``--mesh N`` (execute)
+shards each ciphertext batch over an N-entry mesh after keygen
+(``parallel.data_mesh``: the visible GPUs in turn, or the CPU under
+``--device cpu``), keys replicated (``CompiledModule.shard_over``).
 """
 import json
 import os
@@ -53,6 +56,7 @@ from .data import pipeline
 from .data.codec import CodecConfig, make_ingest
 from .fhe.runtime import (CompiledModule, compile_ptq_model,
                           compile_qat_model, default_device)
+from .parallel import data_mesh
 from .models.resnet import (ModelSpec, QATResNet, build_spec,
                             calibrate_scales, init_model, model_summary)
 from .utils import AverageMeter, run_profiled, topk_accuracy
@@ -82,9 +86,11 @@ def test_unencrypted(model, ingest, ds, idx, batch):
 
 
 def test_encrypted(module, clf_w, clf_b, ingest, ds, idx, batch, fhe_mode,
-                   drop_limbs=0, resume=None, check_ref=False):
-    """Encrypted-trunk + clear-classifier eval.  ``resume``: optional
-    :class:`SweepState`; ``check_ref``: the per-TLU slip audit."""
+                   drop_limbs=0, mesh=None, resume=None, check_ref=False):
+    """Encrypted-trunk + clear-classifier eval.  ``mesh``: the device mesh
+    the ciphertext batch shards over (after ``module.shard_over(mesh)``);
+    ``resume``: optional :class:`SweepState`; ``check_ref``: the per-TLU
+    slip audit."""
     top1, top5 = AverageMeter(), AverageMeter()
     for bi, (images, labels) in enumerate(pipeline.batches(
             ds, idx, batch, shuffle=False, drop_remainder=False)):
@@ -95,7 +101,7 @@ def test_encrypted(module, clf_w, clf_b, ingest, ds, idx, batch, fhe_mode,
             continue
         x = ingest(images).cpu().numpy()
         feats = module.forward(x, fhe=fhe_mode, drop_limbs=drop_limbs,
-                               check_ref=check_ref)
+                               mesh=mesh, check_ref=check_ref)
         p1, p5 = topk_accuracy(feats @ clf_w + clf_b, labels)
         top1.update(p1, len(labels))
         top5.update(p5, len(labels))
@@ -158,8 +164,6 @@ def prepare(cfg, device=None) -> Session:
     device = torch.device(device or cfg.device)
     if device.type == "cuda":
         device = default_device()        # raises without a GPU
-    if cfg.mesh:
-        raise NotImplementedError("--mesh is not yet ported")
     img = cfg.image_size_dct if cfg.dct_status else cfg.image_size
     in_ch = cfg.channels if cfg.dct_status else 3
     spec = build_spec(cfg.model, in_channels=in_ch, img_size=img,
@@ -242,10 +246,17 @@ def main_impl(cfg):
             fh.write(text + "\n")
         print(f"Circuit dumped to {cfg.dump_circuit}")
 
+    mesh = None
     if cfg.fhe_mode == "execute":
         t = time.time()
         module.keygen()
         print(f"Keygen time: {time.time()-t:.2f}s")
+        if cfg.mesh:
+            mesh = data_mesh(int(cfg.mesh), devices=module.device
+                             if module.device.type == "cpu" else None)
+            module.shard_over(mesh)
+            print(f"Sharded encrypted eval over {mesh.size} device(s) "
+                  "(keys replicated, ciphertext batch sharded)")
 
     clf_w = np.asarray(s.params["classifier"]["w"])
     clf_b = np.asarray(s.params["classifier"]["b"])
@@ -288,7 +299,7 @@ def main_impl(cfg):
           f"on a subset of {len(s.test_idx)} images...")
     e1, e5 = test_encrypted(module, clf_w, clf_b, s.ingest, s.testset,
                             s.test_idx, cfg.test_batch_size, cfg.fhe_mode,
-                            cfg.drop_limbs, resume=resume,
+                            cfg.drop_limbs, mesh=mesh, resume=resume,
                             check_ref=cfg.slip_audit)
     dt = (time.time() - t) / max(len(s.test_idx), 1)
     print(f"[Test] Top-1 Acc: {e1.avg:.3f}% | Top-5 Acc: {e5.avg:.3f}% | "

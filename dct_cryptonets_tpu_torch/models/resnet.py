@@ -27,6 +27,7 @@ import math
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -199,10 +200,50 @@ def fp32_convolutions():
         yield
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over the process group, with the sum's gradient: every rank's
+    loss depends on the sum, so a rank's input gets the summed output
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        t = t.clone()
+        dist.all_reduce(t, group=group)
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def batch_moments(x, group=None):
+    """(mean, biased variance, count) of NCHW ``x`` per channel.  With a
+    process ``group``, over the global batch of the data-parallel ranks,
+    as the JAX train step takes them over its sharded batch: the global
+    mean first, then the global mean of the squared deviations from it
+    (``jnp.var``'s order), each an all-reduce of per-rank sums."""
+    if group is None:
+        return (x.mean(dim=(0, 2, 3)), x.var(dim=(0, 2, 3), correction=0),
+                x.numel() // x.shape[1])
+    s = torch.cat([x.sum(dim=(0, 2, 3)),
+                   x.new_full((1,), x.numel() // x.shape[1])])
+    s = _AllReduceSum.apply(s, group)
+    n = s[-1].detach()
+    mean = s[:-1] / n
+    d = x - mean.view(1, -1, 1, 1)
+    var = _AllReduceSum.apply((d * d).sum(dim=(0, 2, 3)), group) / n
+    return mean, var, int(n)
+
+
 class _BN(nn.Module):
     """BatchNorm over the channel axis of NCHW, the JAX ``batchnorm``:
     train mode normalizes with the biased batch variance and moves the
-    running statistics (momentum 0.1) with the unbiased one."""
+    running statistics (momentum 0.1) with the unbiased one.  ``group``
+    (set by :meth:`QATResNet.data_parallel`): the process group whose
+    global batch the train-mode statistics are taken over."""
 
     MOMENTUM, EPS = 0.1, 1e-5
 
@@ -212,13 +253,12 @@ class _BN(nn.Module):
         self.beta = nn.Parameter(_t(p["beta"]))
         self.register_buffer("mean", _t(s["mean"]))
         self.register_buffer("var", _t(s["var"]))
+        self.group = None
 
     def forward(self, x):
         sh = (1, -1, 1, 1)
         if self.training:
-            mean = x.mean(dim=(0, 2, 3))
-            var = x.var(dim=(0, 2, 3), correction=0)
-            n = x.numel() // x.shape[1]
+            mean, var, n = batch_moments(x, self.group)
             m = self.MOMENTUM
             with torch.no_grad():
                 self.mean.copy_((1 - m) * self.mean + m * mean)
@@ -256,13 +296,16 @@ class _Act(nn.Module):
     """Activation fake-quant node with a learned scale.  While
     ``calibrating`` it first sets its scale from the batch (max over the
     batch, of |h| for signed nodes) and then quantizes with it, so later
-    nodes see already-quantized activations."""
+    nodes see already-quantized activations.  ``group`` (set by
+    :meth:`QATResNet.data_parallel`): the process group whose global batch
+    (of equal shards) sizes the scale's LSQ gradient."""
 
     def __init__(self, node, bits, relu):
         super().__init__()
         self.scale = nn.Parameter(_t(node["scale"]))
         self.bits, self.relu = bits, relu
         self.calibrating = False
+        self.group = None
 
     def forward(self, x):
         if self.calibrating:
@@ -272,9 +315,12 @@ class _Act(nn.Module):
             with torch.no_grad():
                 self.scale.copy_(true_div(torch.clamp(ref, min=1e-6),
                                           qmax))
+        numel = None
+        if self.group is not None:
+                numel = x.numel() * dist.get_world_size(self.group)
         if self.relu:
-            return fake_quant_relu(x, self.scale, self.bits)
-        return fake_quant_act_signed(x, self.scale, self.bits)
+            return fake_quant_relu(x, self.scale, self.bits, numel)
+        return fake_quant_act_signed(x, self.scale, self.bits, numel)
 
     def node(self):
         return {"scale": _np(self.scale)}, None
@@ -397,6 +443,17 @@ class QATResNet(nn.Module):
         quantizer scale a parameter with gradients), in train mode,
         holding the (params, state) pytree's weights."""
         return cls(params, state, spec).requires_grad_(True).train()
+
+    def data_parallel(self, group):
+        """Take what depends on the batch over the global batch of the
+        data-parallel process ``group`` (``None``: this process's batch),
+        as the JAX train step does over its sharded batch: the train-mode
+        BatchNorm statistics and the LSQ gradient scale of the activation
+        quantizers.  Returns the module."""
+        for m in self.modules():
+            if isinstance(m, (_BN, _Act)):
+                m.group = group
+        return self
 
     def to_params(self):
         """The module's weights as (params, state) numpy pytrees."""

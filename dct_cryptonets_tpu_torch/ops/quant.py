@@ -28,14 +28,16 @@ def weight_scale(w: torch.Tensor, bits: int) -> torch.Tensor:
 class _FakeQuant(torch.autograd.Function):
     """``clip(round(x / scale), qmin, qmax) * scale``.  Backward: the input
     gradient passes where ``x / scale`` lies in [qmin, qmax]; the scale
-    gradient is LSQ's, ``sum(g * ds) / sqrt(x.numel() * qmax)`` with
+    gradient is LSQ's, ``sum(g * ds) / sqrt(numel * qmax)`` with
     ``ds = round(xs) - xs`` inside the range and ``clip(xs, qmin, qmax)``
-    outside it."""
+    outside it; ``numel`` is ``x.numel()`` unless given (a data-parallel
+    shard passes the global batch's)."""
 
     @staticmethod
-    def forward(ctx, x, scale, qmin: int, qmax: int):
+    def forward(ctx, x, scale, qmin: int, qmax: int, numel=None):
         ctx.save_for_backward(x, scale)
         ctx.qrange = (qmin, qmax)
+        ctx.numel = x.numel() if numel is None else numel
         return torch.clamp(torch.round(x / scale), qmin, qmax) * scale
 
     @staticmethod
@@ -47,15 +49,15 @@ class _FakeQuant(torch.autograd.Function):
         gx = torch.where(in_range, g, torch.zeros_like(g))
         ds = torch.where(in_range, torch.round(xs) - xs,
                          torch.clamp(xs, qmin, qmax))
-        n = torch.tensor(x.numel(), dtype=x.dtype, device=x.device)
+        n = torch.tensor(ctx.numel, dtype=x.dtype, device=x.device)
         grad_scale = 1.0 / torch.sqrt(n * qmax)
         gscale = (torch.sum(g * ds) * grad_scale).reshape(scale.shape)
-        return gx, gscale, None, None
+        return gx, gscale, None, None, None
 
 
 def _fake_quant(x: torch.Tensor, scale: torch.Tensor, qmin: int,
-                qmax: int) -> torch.Tensor:
-    return _FakeQuant.apply(x, scale, qmin, qmax)
+                qmax: int, numel=None) -> torch.Tensor:
+    return _FakeQuant.apply(x, scale, qmin, qmax, numel)
 
 
 def _floor_scale(scale: torch.Tensor) -> torch.Tensor:
@@ -78,14 +80,14 @@ def quantize_weight_int(w: torch.Tensor, bits: int):
 
 
 def fake_quant_act_signed(x: torch.Tensor, scale: torch.Tensor,
-                          bits: int) -> torch.Tensor:
+                          bits: int, numel=None) -> torch.Tensor:
     qmax = 2 ** (bits - 1) - 1
-    return _fake_quant(x, _floor_scale(scale), -(qmax + 1), qmax)
+    return _fake_quant(x, _floor_scale(scale), -(qmax + 1), qmax, numel)
 
 
 def fake_quant_relu(x: torch.Tensor, scale: torch.Tensor,
-                    bits: int) -> torch.Tensor:
-    return _fake_quant(x, _floor_scale(scale), 0, 2 ** bits - 1)
+                    bits: int, numel=None) -> torch.Tensor:
+    return _fake_quant(x, _floor_scale(scale), 0, 2 ** bits - 1, numel)
 
 
 def act_qrange(bits: int, signed: bool, relu: bool):

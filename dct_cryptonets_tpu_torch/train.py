@@ -19,8 +19,18 @@ Run (the flagship recipe; on the GPU unless ``--device cpu``):
       --lr 0.001 --optimizer adam --stop_epoch 30
 
 ``--profile_dir DIR`` writes a ``torch.profiler`` trace of the run into
-DIR.  Not yet ported: ``--mesh`` and the example and confusion plots (the
-JAX package's ``viz.py``).
+DIR.  Not yet ported: the example and confusion plots (the JAX package's
+``viz.py``).
+
+``--mesh N`` trains data-parallel over N processes, one per mesh entry
+(``parallel.data_mesh``: the visible GPUs in turn, or the CPU under
+``--device cpu``), joined by ``torch.distributed`` (NCCL when each has a
+GPU of its own, gloo otherwise, as two processes on one GPU).  Each
+process takes its rows of every batch; the augmentation and dropout
+draws are the whole batch's, sliced; the BatchNorm statistics, the loss,
+top-k and the gradient are the whole batch's (all-reduced), so every
+process holds the same parameters and optimizer state.  Validation,
+checkpoints and prints are rank 0's.
 """
 import json
 import os
@@ -29,6 +39,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .checkpoint import (load_ckpt, optimizer_state_from_numpy,
                          optimizer_state_to_numpy, save_ckpt)
@@ -38,6 +49,10 @@ from .data.codec import CodecConfig, dct_ingest_train, rgb_ingest_train
 from .data.codec import make_ingest as make_eval_ingest
 from .fhe.runtime import default_device
 from .ops.quant import true_div
+from .parallel import data_mesh, global_data_mesh, initialize
+from .parallel.distributed import (all_gather, all_reduce, broadcast,
+                                   coll_device, free_port, shutdown)
+from .parallel.mesh import shard_rows
 from .models.resnet import (QATResNet, build_spec, calibrate_scales,
                             fp32_convolutions, init_model, model_summary,
                             tree_leaves)
@@ -87,42 +102,67 @@ def cross_entropy(logits, labels):
 
 
 def make_ingest(cfg, codec_cfg: CodecConfig | None, device):
-    """``ingest(images, train, generator)``: the train path (augmented when
-    ``--train_aug``) or the codec's eval path, on ``device``."""
+    """``ingest(images, train, generator, rows)``: the train path
+    (augmented when ``--train_aug``) or the codec's eval path, on
+    ``device``; ``rows``: a data-parallel shard's rows of the batch (the
+    augmentation draws are the whole batch's)."""
     eval_ingest = make_eval_ingest(codec_cfg, device, cfg.image_size,
                                    cfg.dataset)
 
-    def ingest(images, train=False, generator=None):
+    def ingest(images, train=False, generator=None, rows=None):
         if not (train and cfg.train_aug):
-            return eval_ingest(images)
+            return eval_ingest(images if rows is None else images[rows])
         x = torch.as_tensor(np.asarray(images), device=device)
         if codec_cfg is None:
             return rgb_ingest_train(generator, x, cfg.image_size,
-                                    cfg.dataset)
-        return dct_ingest_train(generator, x, codec_cfg)
+                                    cfg.dataset, rows)
+        return dct_ingest_train(generator, x, codec_cfg, rows)
     return ingest
 
 
-def train_step(model, opt, cfg, x, labels, generator):
+def train_step(model, opt, cfg, x, labels, generator, shard=None):
     """One optimizer step on the ingested batch ``x``; returns (loss,
     logits), detached.  Dropout on the logits (reference train.py:396)
-    draws its mask from ``generator``."""
+    draws its mask from ``generator``.
+
+    ``shard`` = (rows, n) in a data-parallel process group (the model's
+    BatchNorm synced, :meth:`QATResNet.data_parallel`): ``x`` and
+    ``labels`` are ``rows`` of a global batch of ``n``.  The dropout mask
+    is drawn for the global batch and sliced, the gradients are
+    all-reduced into the gradient of the global mean loss, and the loss
+    and logits returned are the global batch's."""
     model.train()
     with fp32_convolutions():
         _, logits = model(x)
         if cfg.dropout:
-            keep = torch.rand(logits.shape, generator=generator) \
-                < 1 - cfg.dropout
+            shape = logits.shape if shard is None else (shard[1],
+                                                        logits.shape[1])
+            keep = torch.rand(shape, generator=generator) < 1 - cfg.dropout
+            if shard is not None:
+                keep = keep[shard[0]]
             logits = torch.where(keep.to(logits.device),
                                  true_div(logits, 1 - cfg.dropout),
                                  torch.zeros_like(logits))
-        loss = cross_entropy(logits, labels)
+        if shard is None:
+            loss = cross_entropy(logits, labels)
+        else:
+            logp = torch.log_softmax(logits, dim=1)
+            loss = -torch.sum(torch.gather(logp, 1, labels[:, None])) \
+                / shard[1]
         opt.zero_grad(set_to_none=True)
         loss.backward()
     params = [p for g in opt.param_groups for p in g["params"]]
+    loss, logits = loss.detach(), logits.detach()
+    if shard is not None:
+        grads = [p.grad for p in params if p.grad is not None]
+        flat = all_reduce(torch.cat([g.reshape(-1) for g in grads]))
+        for g, v in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(v.view_as(g))
+        loss = all_reduce(loss.clone())
+        logits = torch.cat(all_gather(logits))
     clip_gradients(params, cfg)
     opt.step()
-    return loss.detach(), logits.detach()
+    return loss, logits
 
 
 @torch.no_grad()
@@ -156,15 +196,51 @@ def main(argv=None):
 def main_impl(cfg):
     """Train as the flags say; returns a summary: ``best_val`` (top-1 %),
     ``test_top1`` (%), ``test_correct``, ``test_total``, ``epochs``,
-    ``steps``, ``epoch_s`` (seconds per training epoch) and ``ckpt_dir``."""
+    ``steps``, ``epoch_s`` (seconds per training epoch) and ``ckpt_dir``.
+    Under ``--mesh N``: rank 0's summary of the N-process run."""
     device = torch.device(cfg.device)
     if device.type == "cuda":
         device = default_device()        # raises without a GPU
-    if cfg.mesh:
-        raise NotImplementedError("--mesh is not yet ported")
+    if not cfg.mesh:
+        return train_process(cfg, device)
+    mesh = data_mesh(int(cfg.mesh), devices="cpu"
+                     if device.type == "cpu" else None)
+    ndev = mesh.size
+    print(f"Mesh: {ndev} device(s)")
+    assert cfg.batch_size % ndev == 0, \
+        f"--batch_size {cfg.batch_size} must divide the {ndev}-device mesh"
+    ctx = torch.multiprocessing.get_context("spawn")
+    results = ctx.SimpleQueue()
+    torch.multiprocessing.spawn(
+        _mesh_process, args=(cfg, [str(d) for d in mesh.devices],
+                             f"localhost:{free_port()}", results),
+        nprocs=ndev, join=True)
+    return results.get()
+
+
+def _mesh_process(rank, cfg, devices, address, results):
+    """One process of a ``--mesh`` run: joins the group, trains its rows
+    of every batch and, on rank 0, hands back the summary."""
+    if torch.device(devices[rank]).type == "cpu":
+        torch.set_num_threads(max(1, torch.get_num_threads() // len(devices)))
+    initialize(address, len(devices), rank, devices=[devices[rank]])
+    try:
+        summary = train_process(cfg, torch.device(devices[rank]),
+                                rank=rank, world=len(devices))
+        if rank == 0:
+            results.put(summary)
+    finally:
+        shutdown()
+
+
+def train_process(cfg, device, rank=0, world=1):
+    """The training run of one process: the whole run when ``world`` is
+    1, else rank ``rank``'s part of a data-parallel run over ``world``
+    processes of an initialized group (``main_impl`` under ``--mesh``)."""
+    say = print if rank == 0 else (lambda *a, **k: None)
     ckpt_dir = checkpoint_dir_for(cfg)
     os.makedirs(ckpt_dir, exist_ok=True)
-    print(f"Checkpoint dir: {ckpt_dir}")
+    say(f"Checkpoint dir: {ckpt_dir}")
 
     img = cfg.image_size_dct if cfg.dct_status else cfg.image_size
     in_ch = cfg.channels if cfg.dct_status else 3
@@ -180,18 +256,18 @@ def main_impl(cfg):
         num_classes=cfg.num_classes, synthetic_size=cfg.synthetic_size)
         for train in (True, False))
     train_idx, val_idx = pipeline.train_val_split(len(trainset), 0.1)
-    print(f"Device: {device}")
+    say(f"Device: {device}")
     ingest = make_ingest(cfg, codec_cfg, device)
 
     params, state = init_model(spec, torch.Generator().manual_seed(0))
     # per-layer topology summary (reference train.py:335-347, torchinfo)
-    print(model_summary(spec, params))
+    say(model_summary(spec, params))
     if spec.quantized:
         # runtime-stats activation-scale calibration on one batch
         imgs0, _ = trainset.gather(train_idx[:64])
         params = calibrate_scales(params, state, ingest(imgs0), spec)
     n_params = sum(int(np.prod(np.shape(a))) for a in tree_leaves(params))
-    print(f"Number Parameters: {n_params}")
+    say(f"Number Parameters: {n_params}")
 
     start_epoch = cfg.start_epoch
     best_val = 0.0
@@ -206,9 +282,13 @@ def main_impl(cfg):
         # resumes AT the saved epoch, as the reference does (ROADMAP)
         start_epoch = ck["epoch"]
         best_val = ck["prec1"]
-        print(f"Resumed {cfg.resume} ({best_val:.3f}% @ epoch {ck['epoch']})")
+        say(f"Resumed {cfg.resume} ({best_val:.3f}% @ epoch {ck['epoch']})")
 
     model = QATResNet.from_params(params, state, spec).to(device)
+    mesh = None
+    if world > 1:
+        mesh = global_data_mesh()
+        model.data_parallel(dist.group.WORLD)
     opt = make_optimizer(cfg, cfg.lr, model.parameters())
     if opt_state is not None:
         opt.load_state_dict(optimizer_state_from_numpy(opt_state))
@@ -219,6 +299,8 @@ def main_impl(cfg):
     gen = torch.Generator().manual_seed(1234)
 
     def save(name, epoch, p1, p5):
+        if rank != 0:
+            return
         save_ckpt(os.path.join(ckpt_dir, name), epoch, *model.to_params(),
                   optimizer_state_to_numpy(opt.state_dict()), p1, p5)
 
@@ -230,71 +312,85 @@ def main_impl(cfg):
             # the reference resets the optimizer's LR on its schedule
             # (utils.py:127-133)
             set_lr(opt, lr)
-        print(f"\nEpoch: [{epoch + 1} | {cfg.stop_epoch}] LR: {lr}")
+        say(f"\nEpoch: [{epoch + 1} | {cfg.stop_epoch}] LR: {lr}")
 
         t = time.time()
         tl, t1, t5 = AverageMeter(), AverageMeter(), AverageMeter()
         nb = 0
         for images, labels in pipeline.batches(
                 trainset, train_idx, cfg.batch_size, shuffle=True, seed=epoch):
-            x = ingest(images, train=True, generator=gen)
             y = torch.as_tensor(labels.astype(np.int64), device=device)
-            loss, logits = train_step(model, opt, cfg, x, y, gen)
+            rows = shard = None
+            if mesh is not None:
+                rows = shard_rows(len(labels), mesh, rank)
+                y, shard = y[rows], (rows, len(labels))
+            x = ingest(images, train=True, generator=gen, rows=rows)
+            loss, logits = train_step(model, opt, cfg, x, y, gen, shard)
             p1, p5 = topk_accuracy(logits.cpu().numpy(), labels)
             tl.update(float(loss), len(labels))
             t1.update(p1, len(labels))
             t5.update(p5, len(labels))
             nb += 1
             if cfg.verbose and nb % 50 == 0:
-                print(f"[{nb}] Avg. Train Loss: {tl.avg:.3f} | "
+                say(f"[{nb}] Avg. Train Loss: {tl.avg:.3f} | "
                       f"Top-1 Acc: {t1.avg:.3f}% | Top-5 Acc: {t5.avg:.3f}%")
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         epoch_s.append(time.time() - t)
         steps += nb
         epochs += 1
-        print(f"Time for training epoch {epoch}: {epoch_s[-1] / 60:.2f} min")
+        say(f"Time for training epoch {epoch}: {epoch_s[-1] / 60:.2f} min")
 
         if (epoch % cfg.save_freq == 0) or (epoch == cfg.stop_epoch - 1):
             save(f"{epoch}.tar", epoch, t1.avg, t5.avg)
 
-        vl, v1, v5, _ = evaluate(model, ingest, trainset, val_idx,
-                                 cfg.test_batch_size, device)
-        print(f"Avg. Val Loss: {vl.avg:.3f} | Top-1 Acc: {v1.avg:.3f}% | "
-              f"Top-5 Acc: {v5.avg:.3f}%")
-        if v1.avg > best_val:
-            best_val = v1.avg
-            save("best.tar", epoch, v1.avg, v5.avg)
+        # validation, unsharded (rank 0's, sent to every rank)
+        val = torch.zeros(3, dtype=torch.float64)
+        if rank == 0:
+            vl, v1, v5, _ = evaluate(model, ingest, trainset, val_idx,
+                                     cfg.test_batch_size, device)
+            val = torch.tensor([vl.avg, v1.avg, v5.avg], dtype=torch.float64)
+        if mesh is not None:
+            val = broadcast(val.to(coll_device()))
+        val_loss, val1, val5 = val.tolist()
+        say(f"Avg. Val Loss: {val_loss:.3f} | Top-1 Acc: {val1:.3f}% | "
+              f"Top-5 Acc: {val5:.3f}%")
+        if val1 > best_val:
+            best_val = val1
+            save("best.tar", epoch, val1, val5)
 
-        with open(log_path, "a") as lf:
-            lf.write(json.dumps({
-                "epoch": epoch, "lr": lr,
-                "train_loss": round(tl.avg, 5), "train_top1": round(t1.avg, 3),
-                "val_loss": round(vl.avg, 5), "val_top1": round(v1.avg, 3),
-                "val_top5": round(v5.avg, 3),
-            }) + "\n")
+        if rank == 0:
+            with open(log_path, "a") as lf:
+                lf.write(json.dumps({
+                    "epoch": epoch, "lr": lr, "train_loss": round(tl.avg, 5),
+                    "train_top1": round(t1.avg, 3),
+                    "val_loss": round(val_loss, 5), "val_top1": round(val1, 3),
+                    "val_top5": round(val5, 3),
+                }) + "\n")
 
-        if stopper(vl.avg):
-            print(f"Early stopping at epoch: {epoch}")
+        if stopper(val_loss):
+            say(f"Early stopping at epoch: {epoch}")
             break
+    if rank != 0:
+        return None
 
     # final test with the best model
     best = os.path.join(ckpt_dir, "best.tar")
     if os.path.exists(best):
         ck = load_ckpt(best)
         model = QATResNet(*ck["state"], spec).to(device)
-        print(f"Loaded best model {best} (epoch {ck['epoch']})")
+        say(f"Loaded best model {best} (epoch {ck['epoch']})")
     test_idx = np.arange(len(testset))
     _, _, _, preds = evaluate(model, ingest, testset, test_idx,
                               max(cfg.test_batch_size, 2), device)
     correct = int((preds == testset.labels[test_idx]).sum())
     total = len(test_idx)
-    print(f"Test Acc: {correct}/{total} ({100.0*correct/max(total,1):.2f}%)")
+    say(f"Test Acc: {correct}/{total} ({100.0*correct/max(total,1):.2f}%)")
     if not cfg.dct_status or cfg.dataset in ("cifar10", "Imagenette",
                                              "synthetic"):
-        print("Plots not written: the example grid and the confusion "
+        say("Plots not written: the example grid and the confusion "
               "heatmap (viz.py) are not yet ported")
-    print("Done")
+    say("Done")
     return {"best_val": best_val, "test_top1": 100.0 * correct / max(total, 1),
             "test_correct": correct, "test_total": total, "epochs": epochs,
             "steps": steps, "epoch_s": epoch_s, "ckpt_dir": ckpt_dir}

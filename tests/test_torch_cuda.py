@@ -4,8 +4,10 @@ rotate_diff) against their plain PyTorch versions on the card, and the
 engines against each other, bit for bit; the clear QAT model's classes on
 the card against the CPU's; the trainer's step and augmented ingest on
 the card against the CPU's; the batched transforms on the card against
-the CPU's, and the native host codec against the card's ingest.  Every
-test here needs an NVIDIA GPU and skips on the CPU.
+the CPU's, and the native host codec against the card's ingest; the
+sharded paths on one card: the encrypted forward over a 2-entry mesh and
+the tile-sharded ingest.  Every test here needs an NVIDIA GPU and skips
+on the CPU.
 
 This file imports no JAX and nothing of the JAX package, so it also runs
 on a machine without them:
@@ -463,3 +465,64 @@ def test_native_codec_matches_the_cards_ingest(card, fs, S, ch):
     dev = dct_from_pixels(torch.as_tensor(imgs, device=card), cfg)
     diff = np.abs(host - dev.cpu().numpy())
     assert (diff < 5e-2).mean() > 0.99 and diff.max() < 2.0
+
+
+def test_mesh_forward_on_one_card_equals_unsharded(card):
+    """``forward(fhe="execute", mesh=data_mesh(2))`` on one card (both
+    entries ``cuda:0``, the keys shared) on ``TEST_PARAMS``: a batch of 3
+    padded to 4 gives the unsharded run's features of the padded batch
+    (same keys, same Csprng), bit for bit, and launches K1-K3."""
+    from dct_cryptonets_tpu_torch.fhe.keys import Csprng
+    from dct_cryptonets_tpu_torch.fhe.runtime import compile_qat_model
+    from dct_cryptonets_tpu_torch.homomorphic_eval import (
+        calibrate_random_init)
+    from dct_cryptonets_tpu_torch.models import resnet as RES
+    from dct_cryptonets_tpu_torch.models.topology import StemSpec
+    from dct_cryptonets_tpu_torch.parallel import data_mesh
+
+    K.build_kernels()
+    spec = RES.ModelSpec("tinyqat", (1,), (4,), 3, 4, num_classes=4,
+                         bit_width=3, stem_override=StemSpec(
+                             1, 1, 0, None, None, 4, True))
+    x = torch.randn((8, 4, 4, 3), generator=torch.Generator().manual_seed(1))
+    params, state = calibrate_random_init(
+        *RES.init_model(spec, torch.Generator().manual_seed(0)), x, spec)
+    m = compile_qat_model(params, state, spec, n_bits=3,
+                          rounding_threshold_bits=3, calib_absmax=2.0,
+                          tfhe_params=TEST_PARAMS, pbs_batch=512, device=card)
+    m.keygen(seed=6)
+    xq = np.clip(np.random.default_rng(5).normal(0, 0.7, (3, 4, 4, 3)),
+                 -2, 2).astype(np.float32)
+    x_pad = np.concatenate([xq, xq[-1:]], axis=0)
+    want = m.forward(x_pad, fhe="execute", enc_rng=Csprng(9))[:3]
+    mesh = data_mesh(2)
+    assert mesh.devices == (torch.device("cuda", 0),) * 2
+    m.shard_over(mesh)
+    K.reset_launch_counts()
+    got = m.forward(xq, fhe="execute", mesh=mesh, enc_rng=Csprng(9))
+    counts = K.launch_counts()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, m.forward(xq, fhe="simulate"))
+    assert all(counts[k] > 0 for k in (
+        "rotate_decompose", "build_bigd_strips", "fused_external")), counts
+
+
+@pytest.mark.parametrize("fs,S,ch,size", [(4, 16, 24, 80), (8, 56, 64, 448)])
+def test_dct_ingest_sharded_on_the_card(card, fs, S, ch, size):
+    """The tile-sharded ingest on a 4-entry one-card mesh equals the
+    card's ``dct_ingest`` bit for bit, and the CPU's sharded ingest to
+    float32 rounding (4 ulps of the largest value, as the card's DCT
+    against the CPU's)."""
+    from dct_cryptonets_tpu_torch.data import (CodecConfig, dct_ingest,
+                                               dct_ingest_sharded)
+    from dct_cryptonets_tpu_torch.parallel import data_mesh
+
+    cfg = CodecConfig(ch, fs, S)
+    imgs = torch.as_tensor(np.random.default_rng(fs).integers(
+        0, 256, (2, size, size, 3)).astype(np.uint8))
+    got = dct_ingest_sharded(imgs.to(card), cfg, data_mesh(4))
+    assert got.is_cuda
+    assert torch.equal(got, dct_ingest(imgs.to(card), cfg))
+    want = dct_ingest_sharded(imgs, cfg, data_mesh(4, devices="cpu"))
+    ulp = np.spacing(np.float32(want.abs().max()))
+    np.testing.assert_allclose(got.cpu(), want, rtol=0, atol=4 * ulp)

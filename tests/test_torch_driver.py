@@ -76,19 +76,98 @@ def test_dump_circuit_holds_the_audit_summary(tmp_path, capsys):
     assert summary == want.summary()
 
 
-def test_unported_driver_paths_raise():
-    """``--mesh`` is the one flag of either CLI that is not ported
-    (``--profile_dir`` and ``--dataset cifar10`` run since, in
-    tests/test_torch_datasets.py)."""
-    from dct_cryptonets_tpu_torch import train
+def _encrypted_features(monkeypatch):
+    """Record the features of every ``forward(fhe="execute")`` call."""
+    from dct_cryptonets_tpu_torch.fhe.runtime import CompiledModule
+    seen, forward = [], CompiledModule.forward
+
+    def spy(self, x, fhe="simulate", **kw):
+        out = forward(self, x, fhe=fhe, **kw)
+        if fhe == "execute":
+            seen.append(out)
+        return out
+    monkeypatch.setattr(CompiledModule, "forward", spy)
+    return seen
+
+
+def test_eval_cli_mesh_simulate_equals_unsharded(capfd):
+    """``--mesh 2 --device cpu`` in simulate mode (no keys, nothing to
+    shard) prints what the run without it prints, times apart."""
     from dct_cryptonets_tpu_torch.homomorphic_eval import main
-    base = ["--dataset", "synthetic", "--dct_status", "--channels", "24",
-            "--filter_size", "4", "--image_size_dct", "16", "--device", "cpu",
-            "--model", "ResNet20qat"]
-    with pytest.raises(NotImplementedError, match="--mesh"):
-        main(base + ["--checkpoint_path", CKPT, "--mesh", "2"])
-    with pytest.raises(NotImplementedError, match="--mesh"):
-        train.main(base + ["--mesh", "2"])
+
+    def untimed(out):
+        return [ln.split("Time")[0] for ln in out.splitlines()]
+    args = TINY_EVAL + ["--model", "ResNet20qat"]
+    main(args)
+    want = untimed(capfd.readouterr().out)
+    main(args + ["--mesh", "2"])
+    got = untimed(capfd.readouterr().out)
+    assert "Encrypted top1 acc:" in "\n".join(got) and got == want
+
+
+def test_eval_cli_mesh_execute_equals_unsharded(monkeypatch, capfd):
+    """``--mesh 2 --device cpu`` in execute mode shards each batch of 3
+    (padded to 4) over two CPU entries after keygen: its decrypted
+    features and accuracies equal the run without ``--mesh``.  The net is
+    one block on the 24-channel 4 x 4 DCT input, compiled for
+    ``TEST_PARAMS`` (the presets take minutes per image on the CPU)."""
+    import functools
+
+    from dct_cryptonets_tpu_torch import homomorphic_eval as HE
+    from dct_cryptonets_tpu_torch.fhe.params import TEST_PARAMS
+    from dct_cryptonets_tpu_torch.models import resnet as RES
+    from dct_cryptonets_tpu_torch.models.topology import StemSpec
+
+    spec = RES.ModelSpec("tinyqat", (1,), (4,), 24, 4, bit_width=3,
+                         stem_override=StemSpec(1, 1, 0, None, None, 4,
+                                                True))
+    monkeypatch.setattr(HE, "build_spec", lambda *a, **kw: spec)
+    monkeypatch.setattr(HE, "compile_qat_model", functools.partial(
+        HE.compile_qat_model, tfhe_params=TEST_PARAMS))
+    feats = _encrypted_features(monkeypatch)
+    args = ["--dataset", "synthetic", "--dct_status", "--model",
+            "ResNet20qat", "--channels", "24", "--filter_size", "4",
+            "--image_size_dct", "4", "--bit_width", "3", "--n_bits", "3",
+            "--rounding_threshold_bits", "3", "--test_subset", "3",
+            "--test_batch_size", "3", "--calib_batch_size", "8",
+            "--fhe_mode", "execute", "--device", "cpu"]
+    HE.main(args)
+    want = capfd.readouterr().out
+    HE.main(args + ["--mesh", "2"])
+    got = capfd.readouterr().out
+    assert "Sharded encrypted eval over 2 device(s)" in got
+    assert len(feats) == 2 and feats[0].shape == feats[1].shape == (3, 4)
+    np.testing.assert_array_equal(feats[1], feats[0])
+
+    def lines(out):
+        return [ln.split("| Time")[0] for ln in out.splitlines()
+                if "Top-1 Acc" in ln]
+    assert lines(got) == lines(want) and len(lines(got)) == 3
+
+
+def test_train_cli_mesh_writes_a_checkpoint_jax_reads(tmp_path, capfd):
+    """``train --mesh 2 --device cpu``: one short epoch over two gloo
+    processes prints the mesh line and writes checkpoints that the JAX
+    package's ``load_ckpt`` reads (the weights lower to a circuit)."""
+    from dct_cryptonets_tpu import train as JTRAIN
+    from dct_cryptonets_tpu.fhe import compiler as JCOMP
+    from dct_cryptonets_tpu.models import resnet as JRES
+    from dct_cryptonets_tpu_torch import train
+
+    res = train.main(["--dataset", "synthetic", "--synthetic_size", "96",
+                      "--dct_status", "--model", "ResNet20qat",
+                      "--channels", "24", "--filter_size", "4",
+                      "--image_size_dct", "8", "--batch_size", "16",
+                      "--stop_epoch", "1", "--train_aug", "--device", "cpu",
+                      "--mesh", "2", "--checkpoint_dir", str(tmp_path)])
+    out = capfd.readouterr().out
+    assert "Mesh: 2 device(s)" in out and "backend gloo" in out
+    assert out.count("Epoch: [1 | 1]") == 1 and "Done" in out
+    assert res["epochs"] == 1 and res["steps"] == 5
+    ck = JTRAIN.load_ckpt(os.path.join(res["ckpt_dir"], "best.tar"))
+    params, state = ck["state"]
+    spec = JRES.build_spec("ResNet20qat", in_channels=24, img_size=8)
+    assert JCOMP.lower(params, state, spec).num_pbs > 0
 
 
 TINY_EVAL = ["--dataset", "synthetic", "--dct_status", "--channels", "24",
@@ -227,9 +306,11 @@ def run_isolated(code: str) -> str:
 def test_port_never_imports_jax():
     """Every port module and the benchmark's scripts (``benchmark/run.py``,
     ``benchmark/rates.py``) import, a train step runs on the CPU
-    (``dct_cryptonets_tpu_torch.train``), and a CPU bootstrap runs on both
-    engines under the port's own keys, without JAX or any
-    ``dct_cryptonets_tpu`` module entering ``sys.modules``."""
+    (``dct_cryptonets_tpu_torch.train``), a CPU bootstrap runs on both
+    engines under the port's own keys, and a sharded one and the sharded
+    ingest run on a CPU mesh (``dct_cryptonets_tpu_torch.parallel``),
+    without JAX or any ``dct_cryptonets_tpu`` module entering
+    ``sys.modules``."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import numpy as np, torch
@@ -268,6 +349,20 @@ def test_port_never_imports_jax():
             phase = KEYS.decrypt_lwe(ck, T.to_u64(out), key=ck.big_lwe_key)
             dec = np.round(phase.astype(np.int64) / 2.0 ** 58).astype(int)
             assert (dec == msgs).all(), (engine, dec)
+        from dct_cryptonets_tpu_torch.data import (CodecConfig, dct_ingest,
+                                                   dct_ingest_sharded)
+        from dct_cryptonets_tpu_torch.parallel import (data_mesh, replicate,
+                                                       shard_batch)
+        from dct_cryptonets_tpu_torch.parallel.mesh import run_sharded
+        mesh = data_mesh(2, devices="cpu")
+        ct_s, tab_s = shard_batch(mesh, (T.from_u64(ct), tables))
+        got = run_sharded(mesh, lambda c, t, k: P.bootstrap(c, t, k, par, 58),
+                          ct_s, tab_s, replicate(mesh, dsk)).gather()
+        assert torch.equal(got, out)
+        imgs = np.zeros((1, 32, 32, 3), np.uint8)
+        assert torch.equal(dct_ingest_sharded(imgs, CodecConfig(24, 4, 8),
+                                              mesh),
+                           dct_ingest(imgs, CodecConfig(24, 4, 8)))
     """) + LOADED + """
 print(len(names), "modules;", "loaded:", loaded)
 """

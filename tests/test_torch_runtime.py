@@ -123,12 +123,3 @@ def test_rescale_circuit_matches_jax():
     np.testing.assert_array_equal(T.to_u64(got), JT.to_u64(want))
     np.testing.assert_array_equal(tm.decrypt_feats(got),
                                   tm.forward(XQ, fhe="simulate"))
-
-
-def test_unported_modes_raise(tiny):
-    jspec, spec, jp, js, p, s = tiny
-    _, tm = compile_both(jspec, spec, jp, js, p, s, "approximate")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tm.shard_over(None)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tm.forward(XQ, fhe="execute", mesh=object())
