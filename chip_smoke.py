@@ -53,13 +53,18 @@ Phases, each printed with its elapsed seconds; any failure exits nonzero:
      same init, held to each other in float64 (1e-9) and in float32
      (within 4x the CPU's own float32-vs-float64 distance), the float32
      CUDA step run with cuDNN's TF32 flag on and failing if any backward
-     convolution runs with it on; the flagship recipe through
-     ``train.main`` (digits, --train_aug, batch 128, Adam 1e-3, 30 epochs:
-     300 steps; fails under 85 % best val top-1); the new checkpoint and
-     the committed flagship compiled through homomorphic_eval.prepare (QAT,
-     calibration on 64 digits, exact rounding, n_bits 5, threshold 6) with
-     clear and simulate top-1 over the CLI's 359 digits test images
-     (fails when simulate is more than 5 points under clear); one PTQ
+     convolution runs with it on; the flagship recipe's first 3 epochs
+     twice through ``train.main_impl`` from one seed (deterministic
+     algorithms, as the trainer runs on the card), failing unless the two
+     runs' weights, BN state and optimizer state are bit-equal; the
+     flagship recipe (digits, --train_aug, batch 128, Adam 1e-3, 30
+     epochs: 300 steps; fails under 85 % best val top-1), its steps per
+     s printed; the new
+     checkpoint and the committed flagship compiled through
+     homomorphic_eval.prepare (QAT, calibration on 64 digits, exact
+     rounding, n_bits 5, threshold 6) with clear and simulate top-1 over
+     the CLI's 359 digits test images (fails when simulate is more than 5
+     points under clear); one PTQ
      (ResNet20) and one random-init (ResNet20qat) compile through the
      same flow, each simulated on 4 images.  No CMUX kernel runs here;
   8. datasets, transforms, native codec (the data layer; no CMUX kernel
@@ -94,7 +99,17 @@ Phases, each printed with its elapsed seconds; any failure exits nonzero:
      preset (fs 8, S 56, 64 ch, one 448-pixel image) over the two
      processes and over a 4-entry one-card mesh, equal to ``dct_ingest``
      bit for bit.  Each part is timed; the ranks are joined with a
-     timeout and a failure in either fails the phase.
+     timeout and a failure in either fails the phase;
+ 10. the precomputed strip table: under the default 2 GiB gate phase 3's
+     keygen built none, nor would one at the audit's aux drop 2 (6.34
+     GB); with the gate raised through ``max_bytes`` the table is built
+     at aux (2, 1) (one K2 launch over all 1,536 key rows, timed and
+     sized), the whole table equal to K2's plain version on the same key
+     bytes and its entries to the steps' own strips, and one
+     4096-ciphertext ``clear_low_bits`` chunk at (2, 1) with keyswitch
+     drops (5, 3) and keep_low 1 fed from it, equal to the per-step chunk
+     bit for bit, both timed in turns; K2 over the whole table and K3 on
+     a table slice timed beside their bounds; then the table is freed.
 
 The second-to-last line is the kernels' JSON record, the last line the
 device record.
@@ -107,8 +122,13 @@ import subprocess
 import sys
 import time
 
-import numpy as np
-import torch
+# phase 7's deterministic training needs cuBLAS's fixed workspace
+# configuration; PyTorch sizes the workspace at the process's first cuBLAS
+# call (phase 2's), so it is set before torch is imported
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
@@ -145,18 +165,19 @@ HBM_BPS, INT8_OPS = 3.35e12, 1979e12
 SPIN_CYCLES = 4_000_000         # about 2 ms of the card's clock (cuda_ms)
 
 
-def bound(name, J, N, rows, M, drop=0, cross=0):
+def bound(name, J, N, rows, M, drop=0, cross=0, steps=1):
     """(bound_ms, bound_by) of one call at phase 2's shapes: each input
     read once, each output written once, over the HBM rate; for K3 also
     its int8 operations over the tensor-core peak.  At a (drop, cross)
     knob the strips hold L = 8 - drop key limbs and K3 runs the kept
-    (digit byte, key limb) pairs only."""
+    (digit byte, key limb) pairs only.  K2 builds the strips of ``steps``
+    CMUX steps at once (the precomputed table: every step's)."""
     L, lev = 8 - drop, rows // J
     ops = 0
     if name.startswith("rotate_decompose"):
         nbytes = 8 * J * M * N + 4 * M + 2 * J * lev * M * N
     elif name == "build_bigd_strips":
-        nbytes = J * L * rows * (2 * N + 128 * (2 * N - 128))
+        nbytes = steps * J * L * rows * (2 * N + 128 * (2 * N - 128))
     elif name == "fused_external":
         pairs = sum(len(v) for v in K.bucket_pairs(L, drop, cross).values())
         ops = 2 * J * pairs * rows * M * N * N
@@ -345,15 +366,19 @@ def phase_kernels(dev, record):
                               f"TOPS), {plain:.3f} ms plain, {lib:.3f} ms "
                               "library (two int8 GEMMs)", flush=True)
     for name, per in record.items():
-        for lat, (ms, plain, lib, M, drop, cross) in per.items():
-            J, N, rows, _ = LATTICES[lat.split()[0]]
-            b, by = bound(name, J, N, rows, M, drop, cross)
-            print(f"  time {name} {lat}: kernel {ms:.4f} ms, plain "
-                  f"{plain:.3f} ms, library "
-                  + ("-" if lib is None else f"{lib:.4f} ms")
-                  + f", bound {b:.4f} ms ({by}), {100 * b / ms:.1f} % of "
-                  "bound", flush=True)
+        for lat in per:
+            print_timing(record, name, lat)
     return errs
+
+
+def print_timing(record, name, lat):
+    ms, plain, lib, M, drop, cross, *steps = record[name][lat]
+    J, N, rows, _ = LATTICES[lat.split()[0]]
+    b, by = bound(name, J, N, rows, M, drop, cross, *steps)
+    print(f"  time {name} {lat}: kernel {ms:.4f} ms, plain {plain:.3f} ms, "
+          "library " + ("-" if lib is None else f"{lib:.4f} ms")
+          + f", bound {b:.4f} ms ({by}), {100 * b / ms:.1f} % of bound",
+          flush=True)
 
 
 def library_ms(J, N, rows, M, drop=0):
@@ -798,6 +823,7 @@ TRAIN_ARGS = ["--dataset", "digits", "--dct_status", "--train_aug",
               "4", "--image_size_dct", "16", "--batch_size", "128",
               "--test_batch_size", "256", "--lr", "0.001", "--optimizer",
               "adam", "--stop_epoch", "30"]
+SHORT_EPOCHS = 3                # the recipe's first epochs, run twice
 MIN_VAL_TOP1 = 85.0             # chance is 10 %; the JAX log reached 94.4
 MAX_SIM_DROP = 5.0              # points of simulate top-1 under clear
 # the JAX package's counts on the committed flagship over the 359 digits
@@ -904,11 +930,23 @@ def clear_and_simulate(ckpt, dev, model="ResNet20qat", n=359):
     return round(clear.avg * len(idx) / 100), sim, len(idx), s
 
 
+def payload_equal(a, b) -> bool:
+    """Two checkpoint payloads hold the same weights, BN state and
+    optimizer state, bit for bit."""
+    from dct_cryptonets_tpu_torch.models.resnet import tree_leaves
+
+    x = tree_leaves((a["state"], a["optimizer"]))
+    y = tree_leaves((b["state"], b["optimizer"]))
+    return len(x) == len(y) and all(
+        np.array_equal(np.asarray(u), np.asarray(v)) for u, v in zip(x, y))
+
+
 def phase_train(dev):
     """Phase 7: train on the card, then compile and simulate."""
     import shutil
 
     from dct_cryptonets_tpu_torch import train as TRAIN
+    from dct_cryptonets_tpu_torch.checkpoint import load_ckpt
 
     t = time.time()
     steps, seen, convs, flag_after = train_steps(dev)
@@ -950,21 +988,39 @@ def phase_train(dev):
         raise AssertionError("the float32 CUDA train step is further from "
                              "the CPU's than float32 rounding moves it")
 
-    ckdir = os.path.join(ROOT, "build", "phase7_train")
-    shutil.rmtree(ckdir, ignore_errors=True)
-    t = time.time()
-    res = TRAIN.main(TRAIN_ARGS + ["--checkpoint_dir", ckdir])
-    ep = res["epoch_s"]
-    print(f"  recipe: {res['epochs']} epochs, {res['steps']} steps in "
-          f"{time.time() - t:.1f} s; s per epoch: first {ep[0]:.2f}, "
-          f"median of the rest {float(np.median(ep[1:] or ep)):.2f}; "
-          f"steps per s {res['steps'] / sum(ep):.1f}; best val top-1 "
-          f"{res['best_val']:.3f} %; clear test top-1 "
-          f"{res['test_top1']:.3f} % ({res['test_correct']}/"
-          f"{res['test_total']})", flush=True)
+    def recipe(name, epochs):
+        ckdir = os.path.join(ROOT, "build", f"phase7_{name}")
+        shutil.rmtree(ckdir, ignore_errors=True)
+        args = TRAIN_ARGS[:-1] + [str(epochs), "--checkpoint_dir", ckdir]
+        t = time.time()
+        res = TRAIN.main_impl(TRAIN.parse_args("train", args))
+        ep = res["epoch_s"]
+        rest = res["steps"] // res["epochs"] * (len(ep) - 1) / max(
+            sum(ep[1:]), 1e-9)
+        print(f"  recipe, {name}: {res['epochs']} epochs, {res['steps']} steps in "
+              f"{time.time() - t:.1f} s; s per epoch: first {ep[0]:.2f}, "
+              f"median of the rest {float(np.median(ep[1:] or ep)):.2f}; "
+              f"steps per s {res['steps'] / sum(ep):.2f}, after the first "
+              f"epoch {rest:.2f}; best val top-1 {res['best_val']:.3f} %; "
+              f"clear test top-1 "
+              f"{res['test_top1']:.3f} % ({res['test_correct']}/"
+              f"{res['test_total']})", flush=True)
+        return res, load_ckpt(os.path.join(ckdir, f"{epochs - 1}.tar"))
+
+    # reproducibility: the recipe's first epochs twice from one seed
+    short = [recipe(f"short_{i}", SHORT_EPOCHS) for i in (1, 2)]
+    same = payload_equal(short[0][1], short[1][1])
+    print(f"  two {SHORT_EPOCHS}-epoch runs from one seed: weights, BN state "
+          f"and optimizer state bit for bit "
+          f"{'equal' if same else 'DIFFERENT'}", flush=True)
+    if not same:
+        raise AssertionError("two deterministic training runs from one seed "
+                             "ended with different weights")
+    res, _ = recipe("train", int(TRAIN_ARGS[-1]))
     if res["best_val"] < MIN_VAL_TOP1:
         raise AssertionError(f"best val top-1 {res['best_val']:.2f} % is "
                              f"under {MIN_VAL_TOP1} %")
+    ckdir = os.path.join(ROOT, "build", "phase7_train")
 
     for name, ckpt in (("new checkpoint", os.path.join(ckdir, "best.tar")),
                        ("committed flagship", CKPT)):
@@ -1369,7 +1425,8 @@ def phase9_inputs(s, dev):
     os.makedirs(PHASE9_DIR, exist_ok=True)
     secs = {}
     keys = {f"main_{k}": v for k, v in m.device_keys._asdict().items()}
-    keys.update({f"aux_{k}": v for k, v in m.aux_keys._asdict().items()})
+    keys.update({f"aux_{k}": v for k, v in m.aux_keys._asdict().items()
+                 if v is not None})          # no strip table under the gate
     nbytes = 0
     for k, v in keys.items():
         np.save(os.path.join(PHASE9_DIR, f"{k}.npy"), v.cpu().numpy())
@@ -1478,9 +1535,10 @@ def phase9_worker(rank, address):
     m = CompiledModule(None, par, device=dev)
     if rank == 0:
         def load(prefix, cls):
-            return cls(*(torch.from_numpy(np.load(os.path.join(
-                PHASE9_DIR, f"{prefix}_{f}.npy"))).to(dev)
-                for f in cls._fields))
+            paths = {f: os.path.join(PHASE9_DIR, f"{prefix}_{f}.npy")
+                     for f in cls._fields}
+            return cls(**{f: torch.from_numpy(np.load(p)).to(dev)
+                          for f, p in paths.items() if os.path.exists(p)})
         m.device_keys = load("main", P.DeviceServerKeys)
         m.aux_keys = load("aux", P.DeviceAuxKeys)
     timed("key broadcast", lambda: m.shard_over(mesh))
@@ -1602,6 +1660,138 @@ def phase_sharded(s, dev, image_s):
     return {k: sum(c[k] for c in res["launches"]) for k in KERNELS}
 
 
+# phase 10: the extraction chunk of phase 4's audit knob, fed from the table
+TABLE_CHUNK = (10, 2, (2, 1, 5, 3, 1))    # n_in, shift, extraction knobs
+
+
+def phase_strip_table(m, dev, record):
+    """Phase 10: the extraction lattice's precomputed strip table.  Under
+    the default gate keygen builds none for the flagship; with the gate
+    raised through ``max_bytes`` it is built at the audit's aux knob, one
+    K2 launch, equal to K2's plain version on the same key bytes, each
+    step's entry equal to the step's own strips; one
+    extraction chunk fed from it equals the per-step one bit for bit.
+    Returns the launch counts of the path run (the build and the
+    table-fed chunk) and adds K2's table build and K3 on a table slice to
+    ``record``."""
+    from dct_cryptonets_tpu_torch.fhe import encrypt_lwe
+    from dct_cryptonets_tpu_torch.fhe import pbs as P
+
+    par, cfg, ck, ak = m.params, m.exact_cfg, m.client_keys, m.aux_keys
+    aux = cfg.aux
+    k, N, levels, n = (aux.glwe_dim, aux.poly_size, aux.pbs_levels,
+                       aux.lwe_dim)
+    n_in, shift, knobs = TABLE_CHUNK
+    drop, cross = knobs[:2]
+    gate = 2 * 1024 ** 3
+    sizes = {d: P.strip_table_bytes(ak, d) for d in (0, drop)}
+    gated = P.with_precomputed_strips(ak, aux, drop)
+    print(f"  default gate ({os.environ.get('DCTC_STRIP_TABLE_BYTES', gate)} "
+          f"bytes): the flagship's table would hold {sizes[0] / 1e9:.2f} GB "
+          f"at drop 0 and {sizes[drop] / 1e9:.2f} GB at drop {drop}; "
+          f"phase 3's keygen built {ak.bigd_bytes is not None}, at drop "
+          f"{drop} built {gated.bigd_bytes is not None}", flush=True)
+    if ak.bigd_bytes is not None or gated.bigd_bytes is not None:
+        raise AssertionError("a strip table was built under the default gate")
+
+    rng = np.random.default_rng(23)
+    v = rng.integers(0, 1 << n_in, IMAGE_M)
+    ct = T.from_u64(encrypt_lwe(
+        ck, v.astype(np.uint64) << np.uint64(63 - n_in), rng,
+        key=ck.big_lwe_key, noise_log2=par.glwe_noise_log2), dev)
+
+    def chunk(keys):
+        return P.clear_low_bits(ct, keys, aux, n_in, shift, cfg.back_base_log,
+                                cfg.back_levels, *knobs)
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    K.reset_launch_counts()
+    keys, build_s = common.timed(
+        lambda: P.with_precomputed_strips(ak, aux, drop,
+                                          max_bytes=sizes[drop]), dev)
+    fed, fed_s = common.timed(lambda: chunk(keys), dev)
+    launches = K.launch_counts()
+    table = keys.bigd_bytes
+    want = {name: 0 for name in KERNELS}
+    want.update(build_bigd_strips=1, rotate_decompose=(shift - knobs[4]) * n,
+                fused_external=(shift - knobs[4]) * n)
+    print(f"  table at aux ({drop},{cross}): {tuple(table.shape)}, "
+          f"{table.numel() / 1e9:.3f} GB, built in {build_s:.3f} s (peak "
+          f"{(torch.cuda.max_memory_allocated() - base) / 1e9:.2f} GB over "
+          f"the keys); launches in the build and the table-fed chunk "
+          f"{launches}", flush=True)
+    if table is None or table.numel() != sizes[drop] or launches != want:
+        raise AssertionError(f"the table path launched {launches}, "
+                             f"expected {want}")
+    # the whole table (one K2 launch, byte offsets past 2^31) against K2's
+    # plain version on the same key bytes
+    dbl = ak.bsk_bytes[..., drop:].permute(0, 2, 4, 1, 3).reshape(
+        n * (k + 1), (8 - drop) * (k + 1) * levels, 2 * N)
+    plain = K.build_bigd_strips_plain(dbl, True)
+    same = torch.equal(table.view(plain.shape), plain)
+    print(f"  the table ({table.numel() / 1e9:.3f} GB) against K2's plain "
+          f"version on the same key bytes: "
+          f"{'equal' if same else 'DIFFERENT'}", flush=True)
+    if not same:
+        raise AssertionError("the strip table differs from K2's plain "
+                             "version")
+    del plain
+    for i in (0, 1, n // 2, n - 1):
+        step = K.build_bigd_strips(P._bigd_rows(ak.bsk_bytes[i], k, levels, N,
+                                                drop), k_major=True)
+        if not torch.equal(table[i], step):
+            raise AssertionError(f"table entry {i} differs from step {i}'s "
+                                 "strips")
+    per_step, step_s = common.timed(lambda: chunk(ak), dev)
+    if not torch.equal(fed, per_step):
+        raise AssertionError("the table-fed extraction chunk differs from "
+                             "the per-step one")
+    # in turns: per-step, table, table, per-step
+    secs = {"table": [fed_s], "per-step": [step_s]}
+    for name in ("per-step", "table", "table", "per-step"):
+        secs[name].append(common.timed(
+            lambda: chunk(keys if name == "table" else ak), dev)[1])
+    print(f"  one {IMAGE_M}-ciphertext clear_low_bits chunk at aux "
+          f"({drop},{cross}), keyswitch drops {knobs[2:4]}, keep_low "
+          f"{knobs[4]} ({(shift - knobs[4]) * n} CMUX steps): table-fed == "
+          f"per-step (bit for bit); s: table " + ", ".join(
+              f"{x:.4f}" for x in secs["table"]) + "; per-step " + ", ".join(
+              f"{x:.4f}" for x in secs["per-step"]), flush=True)
+
+    # K2 over the whole table and K3 on one table slice, timed
+    idx = (-K._strip_index(N, dev)) % (2 * N)
+    record["build_bigd_strips"][f"aux drop={drop} table"] = (
+        cuda_ms(lambda: K.build_bigd_strips(dbl, True), reps=3),
+        cuda_ms(lambda: K.build_bigd_strips_plain(dbl, True), reps=1),
+        cuda_ms(lambda: dbl[:, :, idx], reps=1), IMAGE_M, drop, 0, n)
+    rows = (k + 1) * levels
+    gen = torch.Generator(device=dev).manual_seed(29)
+    acc = rand_i64(gen, (k + 1, IMAGE_M, N), dev)
+    d0 = torch.randint(-128, 128, (rows, IMAGE_M, N), generator=gen,
+                       device=dev, dtype=torch.int8)
+    d1 = torch.randint(-64, 65, (rows, IMAGE_M, N), generator=gen, device=dev,
+                       dtype=torch.int8)
+    args = (d0, d1, table[n // 2], acc, drop, cross)
+    if not torch.equal(K.fused_external(*args), K.fused_external_plain(*args)):
+        raise AssertionError("K3 on a table slice differs from its plain "
+                             "version")
+    record["fused_external"][f"aux drop={drop} cross={cross} table"] = (
+        cuda_ms(lambda: K.fused_external(*args)),
+        cuda_ms(lambda: K.fused_external_plain(*args), reps=2),
+        library_ms(k + 1, N, rows, IMAGE_M, drop), IMAGE_M, drop, cross)
+    for name, lat in (("build_bigd_strips", f"aux drop={drop} table"),
+                      ("fused_external", f"aux drop={drop} cross={cross} "
+                       "table"),
+                      ("fused_external", f"aux drop={drop} cross={cross}")):
+        print_timing(record, name, lat)
+    del keys, table, fed, per_step, dbl, args, d0, d1, acc
+    torch.cuda.empty_cache()
+    print(f"  table freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          "allocated", flush=True)
+    return launches
+
+
 def main():
     with Phase("0 device"):
         if not torch.cuda.is_available():
@@ -1662,14 +1852,16 @@ def main():
             raise AssertionError("phase 8 launched a CMUX kernel")
     with Phase("9 sharded paths"):
         sharded_launches = phase_sharded(s, dev, image_s)
+    with Phase("10 strip table"):
+        table_launches = phase_strip_table(s.module, dev, record)
 
     def timing(name, lat):
-        ms, plain, lib, M, drop, cross = record[name][lat]
+        ms, plain, lib, M, drop, cross, *steps = record[name][lat]
         J, N, rows, _ = LATTICES[lat.split()[0]]
-        b, by = bound(name, J, N, rows, M, drop, cross)
+        b, by = bound(name, J, N, rows, M, drop, cross, *steps)
         return {"M": M, "drop": drop, "cross": cross, "ms": ms,
                 "plain_ms": plain, "bound_ms": b, "bound_by": by,
-                "library_ms": lib}
+                "library_ms": lib, **({"steps": steps[0]} if steps else {})}
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():
@@ -1680,7 +1872,9 @@ def main():
                    "training, compile and simulate": train_launches[name],
                    "datasets, transforms, native codec": data_launches[name],
                    "two ranks on one card, sharded chunks":
-                       sharded_launches[name]}
+                       sharded_launches[name],
+                   "strip table: build and table-fed chunk":
+                       table_launches[name]}
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": replaces, "launches": sum(by_path.values()),
                  "launches_by_path": by_path,

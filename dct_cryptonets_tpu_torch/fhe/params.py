@@ -292,6 +292,29 @@ TEST_PARAMS_K2 = TFHEParams(lwe_dim=16, glwe_dim=2, poly_size=256,
                             glwe_noise_log2=4.0, message_bits=4)
 
 
+def safe_drop_limbs(p: TFHEParams, message_bits: int,
+                    p_error: float = 0.01,
+                    amplification2: float = 2.0 ** 14) -> int:
+    """Largest BSK byte-limb drop whose extra external-product noise keeps
+    the per-PBS error probability within ``p_error`` (the preset contract).
+
+    Dropping low key limbs cuts the blind-rotate MAC count by 1/8 each.
+    The dropped-limb noise sits on the PBS *output* ciphertext, so the next
+    TLU's decision sees it amplified by the consumer conv's squared-weight
+    sum, ``amplification2`` (default conservative for the reference nets'
+    int4 3x3 convs; the circuit noise audit, ``fhe/noise_audit.py``,
+    computes the exact per-layer value).
+    """
+    nm = NoiseModel(p)
+    for d in range(7, -1, -1):
+        var_out = nm.var_drop_limbs(d) + nm.var_blind_rotate()
+        if nm.pbs_error_probability(
+                message_bits,
+                input_variance=var_out * amplification2) <= p_error:
+            return d
+    return 0
+
+
 def params_for_precision(message_bits: int) -> TFHEParams:
     """Smallest preset that supports `message_bits` TLUs."""
     for b in sorted(_PRESETS):

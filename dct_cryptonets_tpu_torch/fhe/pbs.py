@@ -22,7 +22,16 @@ default for CUDA tensors; both raise on the CPU), ``"plain"`` and
 ``"s2d_plain"`` run their plain PyTorch versions (``"plain"`` is the
 default for CPU tensors; they are the oracles the kernels are held
 against on the card).  All four give the same ciphertexts bit for bit.
+The TPU package's names are taken too: ``"fused"`` is ``"kernel"`` and
+``"conv"`` is ``"plain"`` (the same products as the TPU package's XLA
+convolutions, bit for bit).
+
+The extraction lattice may carry a precomputed strip table
+(:func:`with_precomputed_strips`, ``DeviceAuxKeys.bigd_bytes``): every
+CMUX step's K-major strips, built once per key by one K2 launch, from
+which each step hands its slice straight to K3.
 """
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -85,6 +94,9 @@ class DeviceAuxKeys(NamedTuple):
     bsk_bytes: torch.Tensor       # (n_aux, (k+1)l, k+1, 2N_aux, 8) int8
     ksk_fwd_bytes: torch.Tensor   # (kN_main * l_ks_aux, n_aux + 1, 8) int8
     ksk_back_bytes: torch.Tensor  # (kN_aux * back_levels, kN_main + 1, 8)
+    # optional precomputed K-major strip table at one drop
+    # (with_precomputed_strips): (n_aux, k+1, L*rows, 128, 2N-128) int8
+    bigd_bytes: torch.Tensor | None = None
 
 
 def preprocess_aux_keys(ak, device=None) -> DeviceAuxKeys:
@@ -171,6 +183,56 @@ def build_bigd(bsk_bytes_i: torch.Tensor, k: int, levels: int, N: int,
         _bigd_rows(bsk_bytes_i, k, levels, N, drop_limbs))
 
 
+def precompute_bigd_strips(bsk_bytes: torch.Tensor, k: int, levels: int,
+                           N: int, drop_limbs: int) -> torch.Tensor:
+    """Every CMUX step's K-major Toeplitz strip table, built once.
+
+    bsk_bytes: (n, rows, k+1, 2N, 8) int8.  Returns (n, k+1, L*rows, 128,
+    2N-128) int8, L = 8 - drop_limbs: entry i is what the fused engine's
+    CMUX step i builds from ``bsk_bytes[i]`` (:func:`_bigd_rows`, then
+    K2 with ``k_major=True``), here from one K2 launch over all n*(k+1)
+    key rows (the plain version for CPU tensors).  The TPU package's
+    table holds the same strips in its own layout (each strip read
+    backwards along both axes)."""
+    n = bsk_bytes.shape[0]
+    rows = (k + 1) * levels
+    L = 8 - drop_limbs
+    assert N % 128 == 0 and N >= 256
+    kept = bsk_bytes[..., drop_limbs:]               # (n, rows, k+1, 2N, L)
+    dbl = kept.permute(0, 2, 4, 1, 3).reshape(n * (k + 1), L * rows, 2 * N)
+    strips = K.build_bigd_strips(dbl.contiguous(), k_major=True)
+    return strips.view(n, k + 1, L * rows, 128, 2 * N - 128)
+
+
+def strip_table_bytes(aux_keys: "DeviceAuxKeys", drop_limbs: int) -> int:
+    """Bytes of the aux key's strip table at ``drop_limbs`` (the TPU
+    package's size formula)."""
+    n, rows, k1, twoN, _ = aux_keys.bsk_bytes.shape
+    return n * k1 * (8 - drop_limbs) * rows * 128 * (twoN - 128)
+
+
+def with_precomputed_strips(aux_keys: "DeviceAuxKeys", aux_params: TFHEParams,
+                            drop_limbs: int,
+                            max_bytes: int | None = None) -> "DeviceAuxKeys":
+    """The aux keys with the precomputed strip table attached, under the
+    TPU package's rules: no table for keys on the CPU (the plain engine
+    builds each step's strips), for lattices with N > 512 (the main
+    lattice's would hold ~25 GB) or for a table over ``max_bytes``
+    (default ``DCTC_STRIP_TABLE_BYTES`` from the environment, else 2 GiB:
+    the flagship's extraction table, 6.3 GB at drop 2, is left out)."""
+    if aux_keys.bsk_bytes.device.type == "cpu" or aux_params.poly_size > 512:
+        return aux_keys
+    if max_bytes is None:
+        max_bytes = int(os.environ.get("DCTC_STRIP_TABLE_BYTES",
+                                       2 * 1024 ** 3))
+    if strip_table_bytes(aux_keys, drop_limbs) > max_bytes:
+        return aux_keys
+    bigd = precompute_bigd_strips(
+        aux_keys.bsk_bytes, aux_params.glwe_dim, aux_params.pbs_levels,
+        aux_params.poly_size, drop_limbs)
+    return aux_keys._replace(bigd_bytes=bigd)
+
+
 def expand_bsk_kernel_s2d(bsk_bytes_i: torch.Tensor, k: int, levels: int,
                           N: int, drop_limbs: int) -> torch.Tensor:
     """GGSW byte limbs -> the s2d external product's int8 operand.
@@ -245,19 +307,22 @@ _ENGINES = {
 }
 _S2D = ("s2d", "s2d_plain")
 _PLAIN_OF = {"kernel": "plain", "s2d": "s2d_plain"}   # CUDA-only engines
+_TPU_NAMES = {"fused": "kernel", "conv": "plain"}
 
 
 def _engine_fns(engine: str | None, device: torch.device):
-    """-> (engine name, its functions)."""
+    """-> (engine name, its functions); the TPU package's names map to
+    the port's."""
     if engine is None:
         engine = "kernel" if device.type == "cuda" else "plain"
-    if engine not in _ENGINES:
+    name = _TPU_NAMES.get(engine, engine)
+    if name not in _ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
-    if engine in _PLAIN_OF and device.type != "cuda":
+    if name in _PLAIN_OF and device.type != "cuda":
         raise ValueError(f"engine={engine!r} needs CUDA tensors (got "
-                         f"{device}); use engine={_PLAIN_OF[engine]!r} on "
+                         f"{device}); use engine={_PLAIN_OF[name]!r} on "
                          "the CPU")
-    return engine, _ENGINES[engine]
+    return name, _ENGINES[name]
 
 
 # ---------------------------------------------------------------------------
@@ -273,13 +338,18 @@ def mod_switch(ct: torch.Tensor, N: int) -> torch.Tensor:
 def blind_rotate(test_poly: torch.Tensor, ct_a: torch.Tensor,
                  ct_b: torch.Tensor, bsk_bytes: torch.Tensor,
                  params: TFHEParams, drop_limbs: int = 0, cross: int = 0,
-                 engine: str | None = None) -> torch.Tensor:
+                 engine: str | None = None,
+                 bigd_all: torch.Tensor | None = None) -> torch.Tensor:
     """Batched blind rotate.
 
     test_poly: (M, N) int64 per-sample lookup polynomials;
     ct_a: (M, n) mod-switched mask; ct_b: (M,) mod-switched body.
     cross: skip external-product byte pairs with digit byte + key limb
-    index < cross.  engine: see the module docstring.  Returns GLWE
+    index < cross.  engine: see the module docstring.  bigd_all: an
+    optional strip table from :func:`precompute_bigd_strips` at the same
+    ``drop_limbs``; the fused engine then feeds step i's slice to its
+    external product instead of building the step's strips (the s2d
+    engine ignores it, as the TPU package's does).  Returns GLWE
     accumulators (M, k+1, N) int64.
     """
     k, N, n = params.glwe_dim, params.poly_size, params.lwe_dim
@@ -303,12 +373,19 @@ def blind_rotate(test_poly: torch.Tensor, ct_a: torch.Tensor,
                                       cross, engine)
         return acc
     strips_fn, front_fn, back_fn = fns
+    if bigd_all is not None and bigd_all.shape[2] != (8 - drop_limbs) * (
+            k + 1) * levels:
+        raise ValueError(f"the strip table {tuple(bigd_all.shape)} was built "
+                         f"at another drop_limbs than {drop_limbs}")
     # acc init, plane-major (k+1, M, N)
     acc = T.zeros((k + 1, M, N), test_poly.device)
     acc[k] = body
     for i in range(n):
-        strips = strips_fn(_bigd_rows(bsk_bytes[i], k, levels, N, drop_limbs),
-                           k_major=True)
+        if bigd_all is None:
+            strips = strips_fn(_bigd_rows(bsk_bytes[i], k, levels, N,
+                                          drop_limbs), k_major=True)
+        else:
+            strips = bigd_all[i]
         dB0, dB1 = front_fn(acc, a_cols[i], blog, levels)
         acc = back_fn(dB0, dB1, strips, acc, drop_limbs, cross)
     return acc.transpose(0, 1).contiguous()
@@ -452,7 +529,8 @@ def clear_low_bits(ct: torch.Tensor, aux_keys: DeviceAuxKeys,
         neg_h = (-h).expand(M, N_aux).contiguous()
         acc = blind_rotate(neg_h, ms[:, :n_aux], ms[:, n_aux],
                            aux_keys.bsk_bytes, aux_params, drop_limbs,
-                           cross, engine=engine)
+                           cross, engine=engine,
+                           bigd_all=aux_keys.bigd_bytes)
         bit_big = _body_add(sample_extract(acc, aux_params), h)
         bit_main = lwe_key_switch(bit_big, aux_keys.ksk_back_bytes,
                                   back_base_log, back_levels, back_ks_drop)

@@ -42,7 +42,7 @@ from .params import (ExactRoundingConfig, TFHEParams, default_exact_rounding,
                      params_for_precision)
 from .pbs import (DeviceAuxKeys, DeviceServerKeys, bootstrap_chunked,
                   clear_low_bits_chunked, preprocess_aux_keys,
-                  preprocess_server_keys)
+                  preprocess_server_keys, with_precomputed_strips)
 
 U64 = np.uint64
 I64 = torch.int64
@@ -192,10 +192,11 @@ class CompiledModule:
                 back_levels=self.exact_cfg.back_levels)
             self.aux_keys = preprocess_aux_keys(ak, self.device)
             self.choose_aux_knobs()
-            # The JAX package also precomputes the extraction lattice's
-            # Toeplitz strip table here; the port's fused engine builds
-            # each CMUX step's strips with K2 instead (a precomputed table
-            # is ROADMAP Queue 3 item 4).
+            # the extraction lattice's strip table at the chosen drop, built
+            # once (on the card, under the size gate): every blind rotate
+            # of the run then streams it instead of building its strips
+            self.aux_keys = with_precomputed_strips(
+                self.aux_keys, self.exact_cfg.aux, self.aux_drop_limbs)
         _sync(self.device)
         self.stats["keygen_time"] = time.time() - t
 

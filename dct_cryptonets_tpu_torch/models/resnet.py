@@ -17,7 +17,8 @@ ones (the JAX ``forward(train=True)``); ``eval()`` mode uses the running
 statistics.  The forward runs its convolutions in full float32, as the JAX
 package's float32 model does: cuDNN would otherwise take TF32 for them on
 the GPU (its default), which can move the clear model's class.  A training
-step must keep its backward inside :func:`fp32_convolutions` too.
+step must keep its backward inside :func:`fp32_convolutions` too, and the
+trainer's runs it inside :func:`train_convolutions` (also deterministic).
 """
 import copy
 import dataclasses
@@ -197,6 +198,20 @@ def fp32_convolutions():
     cudnn = torch.backends.cudnn
     with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
                      deterministic=cudnn.deterministic, allow_tf32=False):
+        yield
+
+
+@contextmanager
+def train_convolutions():
+    """A train step's cuDNN convolutions, forward and backward: full
+    float32 (TF32 off), deterministic algorithms and no autotuning, so one
+    seed gives one set of weights on the card as on XLA (cuDNN's fastest
+    backward algorithms sum with atomics in an order that changes from run
+    to run, and the 4-bit fake-quant turns an ulp into a whole step).  The
+    caller's flags come back afterwards."""
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=False,
+                     deterministic=True, allow_tf32=False):
         yield
 
 

@@ -7,10 +7,12 @@ model.
 
 The model is ``models.resnet.QATResNet`` in train mode; the ingest
 (augmentation and DCT) runs on the batch's device.  Convolutions run in
-full float32 in the forward and the backward.  Checkpoints are pickles of
-numpy pytrees with the JAX trainer's payload keys, so either package reads
-the other's weights; the optimizer state resumes only in the package that
-wrote it.
+full float32 in the forward and the backward.  On the GPU the run takes
+deterministic algorithms only (:func:`reproducible`), so one seed gives
+one set of weights, as the JAX trainer on XLA does.  Checkpoints are
+pickles of numpy pytrees with the JAX trainer's payload keys, so either
+package reads the other's weights; the optimizer state resumes only in
+the package that wrote it.
 
 Run (the flagship recipe; on the GPU unless ``--device cpu``):
   python -m dct_cryptonets_tpu_torch.train --dataset digits --dct_status \\
@@ -19,8 +21,9 @@ Run (the flagship recipe; on the GPU unless ``--device cpu``):
       --lr 0.001 --optimizer adam --stop_epoch 30
 
 ``--profile_dir DIR`` writes a ``torch.profiler`` trace of the run into
-DIR.  Not yet ported: the example and confusion plots (the JAX package's
-``viz.py``).
+DIR.  The RGB path writes ``example_images.png`` and the cifar10,
+Imagenette and synthetic sets ``heatmap.png`` into the checkpoint
+directory (``viz.py``), where the JAX trainer plots them.
 
 ``--mesh N`` trains data-parallel over N processes, one per mesh entry
 (``parallel.data_mesh``: the visible GPUs in turn, or the CPU under
@@ -36,6 +39,7 @@ import json
 import os
 import sys
 import time
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -54,7 +58,7 @@ from .parallel.distributed import (all_gather, all_reduce, broadcast,
                                    coll_device, free_port, shutdown)
 from .parallel.mesh import shard_rows
 from .models.resnet import (QATResNet, build_spec, calibrate_scales,
-                            fp32_convolutions, init_model, model_summary,
+                            init_model, model_summary, train_convolutions,
                             tree_leaves)
 from .utils import (AverageMeter, EarlyStopper, run_profiled, step_decay_lr,
                     topk_accuracy)
@@ -123,7 +127,9 @@ def make_ingest(cfg, codec_cfg: CodecConfig | None, device):
 def train_step(model, opt, cfg, x, labels, generator, shard=None):
     """One optimizer step on the ingested batch ``x``; returns (loss,
     logits), detached.  Dropout on the logits (reference train.py:396)
-    draws its mask from ``generator``.
+    draws its mask from ``generator``.  The convolutions run in full
+    float32 with cuDNN's deterministic algorithms
+    (``models.resnet.train_convolutions``).
 
     ``shard`` = (rows, n) in a data-parallel process group (the model's
     BatchNorm synced, :meth:`QATResNet.data_parallel`): ``x`` and
@@ -132,7 +138,7 @@ def train_step(model, opt, cfg, x, labels, generator, shard=None):
     all-reduced into the gradient of the global mean loss, and the loss
     and logits returned are the global batch's."""
     model.train()
-    with fp32_convolutions():
+    with train_convolutions():
         _, logits = model(x)
         if cfg.dropout:
             shape = logits.shape if shard is None else (shard[1],
@@ -189,7 +195,49 @@ def evaluate(model, ingest, ds, idx, batch, device):
     return vl, v1, v5, np.concatenate(preds) if preds else np.zeros(0)
 
 
+# under deterministic algorithms PyTorch refuses a cuBLAS call unless the
+# environment names one of cuBLAS's fixed workspace configurations
+CUBLAS_WORKSPACE = ":4096:8"
+CUBLAS_FIXED_WORKSPACES = (":4096:8", ":16:8")
+
+
+@contextmanager
+def reproducible(device: torch.device):
+    """On a CUDA ``device``: every op under
+    ``torch.use_deterministic_algorithms(True)``, which raises on an op
+    that has no deterministic implementation, so one seed gives one set of
+    weights.  The caller's setting comes back afterwards.  The
+    convolutions' cuDNN flags are the train step's
+    (``models.resnet.train_convolutions``).
+
+    PyTorch sizes cuBLAS's workspace from ``CUBLAS_WORKSPACE_CONFIG`` at
+    the process's first cuBLAS call, so the variable must hold a fixed
+    configuration before that call: ``main`` sets it as a process's entry
+    point; a caller of ``main_impl`` sets it before its first cuBLAS call
+    (``chip_smoke.py`` before importing torch).  Raises if it does not
+    hold one, since set here it could come too late to size the
+    workspace."""
+    if device.type != "cuda":
+        yield
+        return
+    if os.environ.get("CUBLAS_WORKSPACE_CONFIG") not in \
+            CUBLAS_FIXED_WORKSPACES:
+        raise RuntimeError(
+            "deterministic training on the GPU needs CUBLAS_WORKSPACE_CONFIG "
+            f"set to one of {CUBLAS_FIXED_WORKSPACES} before the process's "
+            "first cuBLAS call (train.main sets it)")
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+
+
 def main(argv=None):
+    # before the process's first cuBLAS call (:func:`reproducible`)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE)
     return run_profiled(parse_args("train", argv), main_impl)
 
 
@@ -202,7 +250,8 @@ def main_impl(cfg):
     if device.type == "cuda":
         device = default_device()        # raises without a GPU
     if not cfg.mesh:
-        return train_process(cfg, device)
+        with reproducible(device):
+            return train_process(cfg, device)
     mesh = data_mesh(int(cfg.mesh), devices="cpu"
                      if device.type == "cpu" else None)
     ndev = mesh.size
@@ -225,8 +274,10 @@ def _mesh_process(rank, cfg, devices, address, results):
         torch.set_num_threads(max(1, torch.get_num_threads() // len(devices)))
     initialize(address, len(devices), rank, devices=[devices[rank]])
     try:
-        summary = train_process(cfg, torch.device(devices[rank]),
-                                rank=rank, world=len(devices))
+        device = torch.device(devices[rank])
+        with reproducible(device):
+            summary = train_process(cfg, device, rank=rank,
+                                    world=len(devices))
         if rank == 0:
             results.put(summary)
     finally:
@@ -236,7 +287,8 @@ def _mesh_process(rank, cfg, devices, address, results):
 def train_process(cfg, device, rank=0, world=1):
     """The training run of one process: the whole run when ``world`` is
     1, else rank ``rank``'s part of a data-parallel run over ``world``
-    processes of an initialized group (``main_impl`` under ``--mesh``)."""
+    processes of an initialized group (``main_impl`` under ``--mesh``);
+    the caller runs it under :func:`reproducible`."""
     say = print if rank == 0 else (lambda *a, **k: None)
     ckpt_dir = checkpoint_dir_for(cfg)
     os.makedirs(ckpt_dir, exist_ok=True)
@@ -297,6 +349,12 @@ def train_process(cfg, device, rank=0, world=1):
         set_lr(opt, cfg.lr)
     stopper = EarlyStopper(patience=10, threshold=0.03)
     gen = torch.Generator().manual_seed(1234)
+    if not cfg.dct_status and rank == 0:
+        # example-image grid (reference train.py:394-395 plots only for
+        # the RGB path)
+        from .viz import plot_examples
+        plot_examples(ckpt_dir, trainset.gather(train_idx[:64])[0],
+                      trainset.labels[train_idx[:64]], trainset.classes)
 
     def save(name, epoch, p1, p5):
         if rank != 0:
@@ -386,10 +444,11 @@ def train_process(cfg, device, rank=0, world=1):
     correct = int((preds == testset.labels[test_idx]).sum())
     total = len(test_idx)
     say(f"Test Acc: {correct}/{total} ({100.0*correct/max(total,1):.2f}%)")
-    if not cfg.dct_status or cfg.dataset in ("cifar10", "Imagenette",
-                                             "synthetic"):
-        say("Plots not written: the example grid and the confusion "
-              "heatmap (viz.py) are not yet ported")
+    if cfg.dataset in ("cifar10", "Imagenette", "synthetic"):
+        # confusion-matrix heatmap (reference train.py:418-419)
+        from .viz import confusion_heatmap
+        confusion_heatmap(ckpt_dir, testset.labels[test_idx], preds,
+                          testset.classes)
     say("Done")
     return {"best_val": best_val, "test_top1": 100.0 * correct / max(total, 1),
             "test_correct": correct, "test_total": total, "epochs": epochs,

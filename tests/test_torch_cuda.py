@@ -15,9 +15,14 @@ on a machine without them:
 """
 import os
 
-import numpy as np
-import pytest
-import torch
+# the trainer's deterministic run (test_training_on_the_card_is_reproducible)
+# needs cuBLAS's fixed workspace, which PyTorch sizes at the process's first
+# cuBLAS call: set here, at collection, before any test makes that call
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+import torch  # noqa: E402
 
 from dct_cryptonets_tpu_torch.fhe import keys as KEYS
 from dct_cryptonets_tpu_torch.fhe import kernels as K
@@ -264,6 +269,88 @@ def test_bootstrap_s2d_engine_equals_kernel(dev, par, drop, cross):
                                             cross, engine=engine))
 
 
+@pytest.mark.parametrize("par", [TEST_PARAMS, TEST_PARAMS_K2],
+                         ids=["k1", "k2"])
+@pytest.mark.parametrize("drop", [0, 3])
+def test_strip_table_is_every_steps_strips(dev, par, drop):
+    """The precomputed strip table: one K2 launch, and entry i equal to
+    what the fused engine's CMUX step i builds, and to the plain table."""
+    k, N, levels = par.glwe_dim, par.poly_size, par.pbs_levels
+    g = torch.Generator(device=dev).manual_seed(11 + drop)
+    bsk = torch.randint(-128, 128, (par.lwe_dim, (k + 1) * levels, k + 1,
+                                    2 * N, 8), generator=g, device=dev,
+                        dtype=torch.int8)
+    K.reset_launch_counts()
+    table = P.precompute_bigd_strips(bsk, k, levels, N, drop)
+    assert K.launch_counts()["build_bigd_strips"] == 1
+    for i in range(par.lwe_dim):
+        assert torch.equal(table[i], K.build_bigd_strips(
+            P._bigd_rows(bsk[i], k, levels, N, drop), k_major=True))
+    assert torch.equal(table.cpu(), P.precompute_bigd_strips(
+        bsk.cpu(), k, levels, N, drop))
+
+
+@pytest.mark.parametrize("drop,cross,fwd,back,keep", [
+    (2, 1, 5, 3, 1), (0, 0, 0, 0, 0)])
+def test_clear_low_bits_fed_from_the_strip_table(dev, drop, cross, fwd, back,
+                                                 keep):
+    """``with_precomputed_strips`` attaches the table on the card (under
+    the default 2 GiB gate at these sizes); the table-fed extraction
+    launches no K2 and equals the per-step one and the plain engine."""
+    ck = KEYS.keygen(TEST_PARAMS, seed=3)
+    cfg = ExactRoundingConfig(TEST_PARAMS_K2)
+    ak = P.preprocess_aux_keys(KEYS.make_aux_server_keys(
+        ck, cfg.aux, seed=4, back_base_log=cfg.back_base_log,
+        back_levels=cfg.back_levels), dev)
+    with_table = P.with_precomputed_strips(ak, cfg.aux, drop)
+    assert with_table.bigd_bytes is not None
+    assert with_table.bigd_bytes.numel() == P.strip_table_bytes(ak, drop)
+    rng = np.random.default_rng(13 + drop)
+    n_in, shift = 11, 3
+    v = rng.integers(0, 1 << n_in, 37)
+    ct = T.from_u64(KEYS.encrypt_lwe(
+        ck, v.astype(np.uint64) << np.uint64(63 - n_in), rng,
+        key=ck.big_lwe_key, noise_log2=TEST_PARAMS.glwe_noise_log2), dev)
+    rest = (cfg.aux, n_in, shift, cfg.back_base_log, cfg.back_levels, 16,
+            drop, cross, fwd, back, keep)
+    K.reset_launch_counts()
+    got = P.clear_low_bits_chunked(ct, with_table, *rest)
+    steps = 3 * (shift - keep) * cfg.aux.lwe_dim
+    assert K.launch_counts() == {"rotate_decompose": steps,
+                                 "build_bigd_strips": 0,
+                                 "fused_external": steps,
+                                 "combine_accumulate": 0, "rotate_diff": 0}
+    assert torch.equal(got, P.clear_low_bits_chunked(ct, ak, *rest))
+    assert torch.equal(got, P.clear_low_bits_chunked(ct, with_table, *rest,
+                                                     engine="plain"))
+    with pytest.raises(ValueError, match="drop_limbs"):
+        P.clear_low_bits(ct, with_table, cfg.aux, n_in, shift,
+                         cfg.back_base_log, cfg.back_levels, drop + 1)
+
+
+def test_tpu_engine_names_on_the_card(dev):
+    """``engine="fused"`` launches the kernels as ``"kernel"`` does, and
+    ``"conv"`` runs the plain version on the card's tensors."""
+    par = TEST_PARAMS
+    ck = KEYS.keygen(par, seed=3)
+    dsk = P.preprocess_server_keys(KEYS.make_server_keys(ck, seed=4), dev)
+    rng = np.random.default_rng(17)
+    msgs = rng.integers(0, 8, 24)
+    ct = T.from_u64(KEYS.encrypt_lwe(
+        ck, msgs.astype(np.uint64) << np.uint64(60), rng,
+        key=ck.big_lwe_key, noise_log2=par.glwe_noise_log2), dev)
+    tables = torch.as_tensor(rng.integers(-4, 4, (24, 8)), dtype=torch.int32,
+                             device=dev)
+    K.reset_launch_counts()
+    fused = P.bootstrap(ct, tables, dsk, par, 60, engine="fused")
+    assert K.launch_counts()["fused_external"] == par.lwe_dim
+    K.reset_launch_counts()
+    conv = P.bootstrap(ct, tables, dsk, par, 60, engine="conv")
+    assert not any(K.launch_counts().values())
+    assert torch.equal(fused, conv)
+    assert torch.equal(fused, P.bootstrap(ct, tables, dsk, par, 60))
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     acc, amt, bsk = inputs(1, 1, 16, 256, 2, dev)
     with pytest.raises(ValueError, match="contiguous"):
@@ -379,6 +466,33 @@ def test_train_step_on_the_card_matches_the_cpu(card):
     dw = np.concatenate([np.abs(g - c).ravel() for g, c in zip(
         tree_leaves(gpu[1]), tree_leaves(cpu[1]))])
     assert (dw > 1e-9).mean() <= 1e-4 and dw.max() <= 2.1e-3
+
+
+def test_training_on_the_card_is_reproducible(card, tmp_path):
+    """Two runs of the trainer on the card from one seed (a few steps of
+    the digits recipe, augmentation on) end with the same weights, BN
+    state and optimizer state, bit for bit: the CUDA run takes
+    deterministic algorithms only.  It rests on CUBLAS_WORKSPACE_CONFIG
+    being set before the test run's first cuBLAS call (the module's top)."""
+    from dct_cryptonets_tpu_torch import train as TRAIN
+    from dct_cryptonets_tpu_torch.checkpoint import load_ckpt
+    from dct_cryptonets_tpu_torch.models.resnet import tree_leaves
+
+    runs = []
+    for i in range(2):
+        d = str(tmp_path / f"run{i}")
+        TRAIN.main(["--dataset", "digits", "--dct_status", "--train_aug",
+                    "--model", "ResNet20qat", "--channels", "24",
+                    "--filter_size", "4", "--image_size_dct", "16",
+                    "--batch_size", "128", "--lr", "0.001", "--optimizer",
+                    "adam", "--stop_epoch", "1", "--checkpoint_dir", d])
+        runs.append(load_ckpt(os.path.join(d, "0.tar")))
+    assert not torch.are_deterministic_algorithms_enabled()
+    a, b = ((r["state"], r["optimizer"]) for r in runs)
+    leaves = list(zip(tree_leaves(a), tree_leaves(b)))
+    assert len(leaves) > 100
+    for x, y in leaves:
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
 
 
 def test_backward_convolutions_run_without_tf32(card):

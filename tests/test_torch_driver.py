@@ -304,7 +304,8 @@ def run_isolated(code: str) -> str:
 
 
 def test_port_never_imports_jax():
-    """Every port module and the benchmark's scripts (``benchmark/run.py``,
+    """Every port module, its tools (``dct_cryptonets_tpu_torch/tools/``)
+    and the benchmark's scripts (``benchmark/run.py``,
     ``benchmark/rates.py``) import, a train step runs on the CPU
     (``dct_cryptonets_tpu_torch.train``), a CPU bootstrap runs on both
     engines under the port's own keys, and a sharded one and the sharded
@@ -320,6 +321,11 @@ def test_port_never_imports_jax():
         for name in names:
             importlib.import_module(name)
         import benchmark.rates, benchmark.run
+        import glob, importlib.util
+        for path in sorted(glob.glob("dct_cryptonets_tpu_torch/tools/*.py")):
+            spec = importlib.util.spec_from_file_location(
+                "tool_" + path.split("/")[-1][:-3], path)
+            spec.loader.exec_module(importlib.util.module_from_spec(spec))
         import dct_cryptonets_tpu_torch.train as TRAIN
         from dct_cryptonets_tpu_torch.models import resnet as RES
         from dct_cryptonets_tpu_torch.models.topology import StemSpec

@@ -477,8 +477,9 @@ def test_cli_epoch_writes_a_checkpoint_jax_reads_and_lowers(tiny_run):
     d, res = tiny_run
     assert res["epochs"] == 2 and res["steps"] == 2 * (144 // 16)
     assert res["test_total"] == 40 and len(res["epoch_s"]) == 2
+    # the synthetic set's confusion heatmap, as the JAX trainer writes it
     assert sorted(os.listdir(d)) == ["0.tar", "1.tar", "best.tar",
-                                     "train_log.jsonl"]
+                                     "heatmap.png", "train_log.jsonl"]
     ck = JTRAIN.load_ckpt(os.path.join(d, "best.tar"))
     assert set(ck) == {"epoch", "state", "prec1", "prec5", "optimizer"}
     params, state = ck["state"]
@@ -591,3 +592,64 @@ def test_train_step_backward_runs_without_tf32():
         assert torch.backends.cudnn.allow_tf32
     finally:
         torch.backends.cudnn.allow_tf32 = before
+
+
+@pytest.mark.parametrize("caller", [(False, True, True), (True, False, False)])
+def test_train_step_convolutions_run_deterministic(caller):
+    """Every convolution of the train step, forward and backward, sees
+    cuDNN's deterministic algorithms on, autotuning off and TF32 off,
+    whatever the caller's flags; the caller's flags are back after the
+    step."""
+    cudnn = torch.backends.cudnn
+    spec = RES.build_spec("ResNet20qat", in_channels=24, img_size=8)
+    model = RES.QATResNet.from_params(*RES.init_model(spec), spec)
+    seen = {"forward": [], "backward": []}
+
+    def flags(kind):
+        return lambda *_: seen[kind].append(
+            (cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32))
+    for m in model.modules():
+        if isinstance(m, RES._QConv):
+            m.register_forward_hook(flags("forward"))
+            m.register_full_backward_hook(flags("backward"))
+    cfg = parse_args("train", ["--device", "cpu"])
+    opt = TRAIN.make_optimizer(cfg, cfg.lr, model.parameters())
+    before = (cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32)
+    cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32 = caller
+    try:
+        TRAIN.train_step(model, opt, cfg, torch.randn((4, 8, 8, 24)),
+                         torch.arange(4), torch.Generator())
+        after = (cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32)
+    finally:
+        cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32 = before
+    assert len(seen["forward"]) == len(seen["backward"]) == 21
+    assert set(seen["forward"]) == set(seen["backward"]) == {
+        (True, False, False)}
+    assert after == caller
+
+
+def test_reproducible_only_on_the_card(monkeypatch):
+    """``reproducible`` leaves a CPU run alone; on a CUDA device it raises
+    unless the environment holds a fixed cuBLAS workspace configuration
+    (set there it could come after the process's first cuBLAS call), and
+    otherwise turns deterministic algorithms on and restores the caller's
+    setting."""
+    monkeypatch.delenv("CUBLAS_WORKSPACE_CONFIG", raising=False)
+    before = torch.are_deterministic_algorithms_enabled()
+    with TRAIN.reproducible(torch.device("cpu")):
+        assert torch.are_deterministic_algorithms_enabled() == before
+    for value in (None, ":0:0"):
+        if value is not None:
+            monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", value)
+        with pytest.raises(RuntimeError, match="CUBLAS_WORKSPACE_CONFIG"):
+            with TRAIN.reproducible(torch.device("cuda")):
+                pass
+        assert torch.are_deterministic_algorithms_enabled() == before
+    try:
+        for value in (":4096:8", ":16:8"):
+            monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", value)
+            with TRAIN.reproducible(torch.device("cuda")):
+                assert torch.are_deterministic_algorithms_enabled()
+            assert torch.are_deterministic_algorithms_enabled() == before
+    finally:
+        torch.use_deterministic_algorithms(before)
