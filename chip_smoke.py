@@ -109,7 +109,20 @@ Phases, each printed with its elapsed seconds; any failure exits nonzero:
      4096-ciphertext ``clear_low_bits`` chunk at (2, 1) with keyswitch
      drops (5, 3) and keep_low 1 fed from it, equal to the per-step chunk
      bit for bit, both timed in turns; K2 over the whole table and K3 on
-     a table slice timed beside their bounds; then the table is freed.
+     a table slice timed beside their bounds; then the table is freed;
+ 11. the larger lattices and ResNet-18: a. every kernel against its plain
+     version at N=4096 and N=8192 (the main lattices of presets 7 and 8,
+     k=1): K1 in both layouts, K5 and K4 at M in {64, 129, 2048, 4097},
+     K2 at drops 0, 2 and 4 in both layouts, K3 at every M and (drop,
+     cross) in {(0,0), (2,1), (3,0), (4,1), (7,0)}; each timed at M=2048
+     beside its bound, K3 at (0,0) and (2,1) beside the library's two
+     int8 GEMMs; b. one 64-ciphertext bootstrap chunk at preset 7 and one
+     at preset 8 on random key bytes, kernel engine equal to the plain
+     engine bit for bit, K1-K3 launched once per CMUX step; c. ResNet18qat
+     at the reference's ImageNet row (DCT 64 ch x 56^2, filter 8,
+     bit_width 5, rounding 7), drawn from seed 0 and calibrated on 64
+     synthetic images on the card: the compile picks preset 7 (N=4096),
+     and simulate on 2 images on the card equals the CPU's bit for bit.
 
 The second-to-last line is the kernels' JSON record, the last line the
 device record.
@@ -152,8 +165,10 @@ KERNELS = {
 }
 # the kernels the flagship image's (kernel engine) path launches
 FUSED_KERNELS = ("rotate_decompose", "build_bigd_strips", "fused_external")
-# (J, N, rows, production batch) of the main and extraction lattices
-LATTICES = {"main": (2, 2048, 4, 2048), "aux": (3, 512, 6, 4096)}
+# (J, N, rows, production batch) of the flagship's main and extraction
+# lattices (phase 2) and of the main lattices of presets 7 and 8 (phase 11)
+LATTICES = {"main": (2, 2048, 4, 2048), "aux": (3, 512, 6, 4096),
+            "p7": (2, 4096, 4, 2048), "p8": (2, 8192, 4, 2048)}
 # the (drop, cross) knobs the noise audit picks for the flagship image at
 # p_error 0.01 on each lattice (phase 6 prints them and runs the aux one;
 # tools/audit_image.py runs the main ones)
@@ -261,7 +276,9 @@ def phase_kernels(dev, record):
             raise AssertionError(f"{name} {what} differs from its plain "
                                  "version")
 
-    for lat, (J, N, rows, Mprod) in LATTICES.items():
+    for lat in ("main", "aux"):
+        J, N, rows, Mprod = LATTICES[lat]
+
         def tops(M, ms, drop, cross, J=J, N=N, rows=rows):
             """int8 tensor ops per second of K3's kept pairs (2 per
             multiply-add)."""
@@ -1792,6 +1809,228 @@ def phase_strip_table(m, dev, record):
     return launches
 
 
+# phase 11: the main lattices of presets 7 and 8 (k=1), and ResNet-18 at
+# the reference's ImageNet row (reference README.md:92)
+LARGE = {"p7": 7, "p8": 8}
+LARGE_M = (64, 129, 2048, 4097)
+LARGE_KNOBS = ((0, 0), (2, 1), (3, 0), (4, 1), (7, 0))
+LARGE_TIMED = ((0, 0), (2, 1))
+# ResNet18qat's fused circuit at 64 ch x 56^2 (structural: the TLU sites)
+IMAGENET_PBS = 1_706_496
+
+
+def phase_large_kernels(dev, record):
+    """Phase 11a: every kernel against its plain version at N=4096 and
+    N=8192; adds the timings at M=2048 to ``record``; returns each
+    kernel's largest |error|."""
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    errs = {name: 0 for name in KERNELS}
+
+    def check(name, got, want, what):
+        errs[name] = max(errs[name], max_abs_err(got, want))
+        if not all(torch.equal(g, w) for g, w in zip(
+                got if isinstance(got, tuple) else (got,),
+                want if isinstance(want, tuple) else (want,))):
+            raise AssertionError(f"{name} {what} differs from its plain "
+                                 "version")
+
+    for lat in LARGE:
+        J, N, rows, Mprod = LATTICES[lat]
+        for M in LARGE_M:
+            acc = rand_i64(gen, (J, M, N), dev)
+            amt = torch.randint(0, 2 * N, (M,), generator=gen, device=dev,
+                                dtype=torch.int32)
+            amt[:3] = torch.tensor([0, N, 2 * N - 1], device=dev)
+            args = (acc, amt, 15, 2)
+            check("rotate_decompose", K.rotate_decompose(*args),
+                  K.rotate_decompose_plain(*args), f"{lat} M={M}")
+            sm = acc.transpose(0, 1).contiguous()
+            sargs = (sm, amt, 15, 2, False)
+            check("rotate_decompose", K.rotate_decompose(*sargs),
+                  K.rotate_decompose_plain(*sargs),
+                  f"{lat} sample-major M={M}")
+            check("rotate_diff", K.rotate_diff(sm, amt),
+                  K.rotate_diff_plain(sm, amt), f"{lat} M={M}")
+            for drop, cross in ((0, 0), (2, 1)):
+                o0, o1 = (torch.randint(
+                    -2 ** 31, 2 ** 31 - 1, (M, J * (8 - drop), N),
+                    generator=gen, device=dev, dtype=torch.int32)
+                    for _ in range(2))
+                kargs = (o0, o1, sm, drop, cross)
+                check("combine_accumulate", K.combine_accumulate(*kargs),
+                      K.combine_accumulate_plain(*kargs),
+                      f"{lat} drop={drop} cross={cross} M={M}")
+                if M == Mprod and drop == 0:
+                    record["combine_accumulate"][lat] = (
+                        cuda_ms(lambda: K.combine_accumulate(*kargs)),
+                        cuda_ms(lambda: K.combine_accumulate_plain(*kargs)),
+                        None, M, 0, 0)
+            if M == Mprod:
+                record["rotate_decompose"][lat] = (
+                    cuda_ms(lambda: K.rotate_decompose(*args)),
+                    cuda_ms(lambda: K.rotate_decompose_plain(*args)), None,
+                    M, 0, 0)
+                record["rotate_decompose sample-major"][lat] = (
+                    cuda_ms(lambda: K.rotate_decompose(*sargs)),
+                    cuda_ms(lambda: K.rotate_decompose_plain(*sargs)), None,
+                    M, 0, 0)
+                record["rotate_diff"][lat] = (
+                    cuda_ms(lambda: K.rotate_diff(sm, amt)),
+                    cuda_ms(lambda: K.rotate_diff_plain(sm, amt)), None, M,
+                    0, 0)
+            del acc, sm, o0, o1, kargs
+        print(f"  {lat} (N={N}): K1 both layouts, K5, K4 at (0,0) and (2,1) "
+              f"equal at M in {LARGE_M}", flush=True)
+        strips = {}
+        for drop in sorted({0, 2, 4} | {d for d, _ in LARGE_KNOBS}):
+            dbl = torch.randint(-128, 128, (J, (8 - drop) * rows, 2 * N),
+                                generator=gen, device=dev, dtype=torch.int8)
+            if drop in (0, 2, 4):
+                for km in (False, True):
+                    check("build_bigd_strips", K.build_bigd_strips(dbl, km),
+                          K.build_bigd_strips_plain(dbl, km),
+                          f"{lat} drop={drop} k_major={km}")
+            if drop == 0:
+                idx = (-K._strip_index(N, dev)) % (2 * N)
+                record["build_bigd_strips"][lat] = (
+                    cuda_ms(lambda: K.build_bigd_strips(dbl, True)),
+                    cuda_ms(lambda: K.build_bigd_strips_plain(dbl, True)),
+                    cuda_ms(lambda: dbl[:, :, idx]), Mprod, 0, 0)
+            strips[drop] = K.build_bigd_strips(dbl, k_major=True)
+        for drop, cross in LARGE_KNOBS:
+            for M in LARGE_M:
+                acc = rand_i64(gen, (J, M, N), dev)
+                d0 = torch.randint(-128, 128, (rows, M, N), generator=gen,
+                                   device=dev, dtype=torch.int8)
+                d1 = torch.randint(-64, 65, (rows, M, N), generator=gen,
+                                   device=dev, dtype=torch.int8)
+                args = (d0, d1, strips[drop], acc, drop, cross)
+                check("fused_external", K.fused_external(*args),
+                      K.fused_external_plain(*args),
+                      f"{lat} drop={drop} cross={cross} M={M}")
+                if M == Mprod and (drop, cross) in LARGE_TIMED:
+                    key = lat if drop == cross == 0 else knob_key(lat, drop,
+                                                                  cross)
+                    record["fused_external"][key] = (
+                        cuda_ms(lambda: K.fused_external(*args), reps=5),
+                        cuda_ms(lambda: K.fused_external_plain(*args),
+                                reps=1),
+                        library_ms(J, N, rows, M, drop), M, drop, cross)
+                del acc, d0, d1, args
+        print(f"  {lat} (N={N}): K2 at drops 0, 2, 4 and K3 at (drop, "
+              f"cross) in {LARGE_KNOBS} equal at M in {LARGE_M}", flush=True)
+        del strips
+        torch.cuda.empty_cache()
+    for name, per in record.items():
+        for lat in per:
+            if lat.split()[0] in LARGE:
+                print_timing(record, name, lat)
+    return errs
+
+
+def random_server_keys(par, dev, seed):
+    """Server keys of random bytes in ``pbs.preprocess_server_keys``'s
+    layout: the kernel engine against the plain engine needs no
+    decryption."""
+    from dct_cryptonets_tpu_torch.fhe import pbs as P
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    k, N, n = par.glwe_dim, par.poly_size, par.lwe_dim
+    rows = (k + 1) * par.pbs_levels
+    return P.DeviceServerKeys(
+        torch.randint(-128, 128, (n, rows, k + 1, 2 * N, 8), generator=g,
+                      device=dev, dtype=torch.int8),
+        torch.randint(-128, 128, (k * N * par.ks_levels, n + 1, 8),
+                      generator=g, device=dev, dtype=torch.int8))
+
+
+def phase_large_bootstraps(dev):
+    """Phase 11b: one 64-ciphertext bootstrap chunk at presets 7 and 8 on
+    random key bytes, kernel engine == plain engine.  Returns the launch
+    counts of the kernel-engine runs."""
+    from dct_cryptonets_tpu_torch.fhe import pbs as P
+    from dct_cryptonets_tpu_torch.fhe.params import _PRESETS
+
+    launches = {name: 0 for name in KERNELS}
+    for preset in LARGE.values():
+        par = _PRESETS[preset]
+        dsk = random_server_keys(par, dev, preset)
+        g = torch.Generator(device=dev).manual_seed(preset + 1)
+        M, kN = 64, par.glwe_dim * par.poly_size
+        ct = rand_i64(g, (M, kN + 1), dev)
+        tables = torch.randint(-2 ** 11, 2 ** 11, (M, 2 ** par.message_bits),
+                               generator=g, device=dev, dtype=torch.int32)
+        K.reset_launch_counts()
+        got, secs = common.timed(lambda: P.bootstrap(
+            ct, tables, dsk, par, par.delta_log2), dev)
+        counts = K.launch_counts()
+        for name in KERNELS:
+            launches[name] += counts[name]
+        want, plain_s = common.timed(lambda: P.bootstrap(
+            ct, tables, dsk, par, par.delta_log2, engine="plain"), dev)
+        same = torch.equal(got, want)
+        print(f"  preset {preset} (n={par.lwe_dim}, N={par.poly_size}, "
+              f"keyswitch 2^{par.ks_base_log} x {par.ks_levels}): bootstrap "
+              f"M={M} kernel engine {secs:.2f} s, plain {plain_s:.2f} s, "
+              f"{'equal' if same else 'DIFFERENT'}; launches {counts}",
+              flush=True)
+        if not same:
+            raise AssertionError(f"preset {preset}: kernel engine != plain "
+                                 "engine")
+        if any(counts[k] != par.lwe_dim for k in FUSED_KERNELS):
+            raise AssertionError(f"preset {preset}: launches {counts}")
+        del dsk, ct, got, want
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_imagenet_row(dev):
+    """Phase 11c: ResNet18qat at the ImageNet row compiled on the card
+    picks preset 7; simulate on the card equals the CPU's."""
+    from dct_cryptonets_tpu_torch.data.codec import CodecConfig, make_ingest
+    from dct_cryptonets_tpu_torch.data.pipeline import load_synthetic
+    from dct_cryptonets_tpu_torch.fhe.circuit import Tlu, simulate
+    from dct_cryptonets_tpu_torch.fhe.runtime import compile_qat_model
+    from dct_cryptonets_tpu_torch.homomorphic_eval import (
+        calibrate_random_init)
+    from dct_cryptonets_tpu_torch.models.resnet import build_spec, init_model
+
+    cfg = CodecConfig(channels=64, filter_size=8, image_size_dct=56)
+    spec = build_spec("ResNet18qat", in_channels=64, img_size=56,
+                      num_classes=10, bit_width=5)
+    t = time.time()
+    ingest = make_ingest(cfg, dev)
+    calib = ingest(load_synthetic(64, cfg.pixel_size, 10, seed=0).images)
+    x = ingest(load_synthetic(2, cfg.pixel_size, 10, seed=1).images)
+    params, state = calibrate_random_init(
+        *init_model(spec, torch.Generator().manual_seed(0)), calib, spec)
+    m = compile_qat_model(params, state, spec, n_bits=5,
+                          rounding_threshold_bits=7, calib_data=calib,
+                          device=dev)
+    tlus = [op for op in m.circuit.ops if isinstance(op, Tlu)]
+    max_r = max(op.spec.in_bits for op in tlus)
+    print(f"  ImageNet row compiled on the card in {time.time() - t:.1f} s: "
+          f"{m.circuit.num_pbs} main PBS over {len(tlus)} TLUs, max TLU "
+          f"bits {max_r}, max acc bits {m.maximum_integer_bit_width()}; "
+          f"main {m.params}", flush=True)
+    if (m.params.message_bits, m.params.lwe_dim, m.params.poly_size) != (
+            7, 970, 4096) or m.circuit.num_pbs != IMAGENET_PBS:
+        raise AssertionError("the ImageNet row should run preset 7 "
+                             f"(n=970, N=4096) with {IMAGENET_PBS} PBS")
+    t = time.time()
+    card_sim = m.forward(x.cpu().numpy(), fhe="simulate")
+    card_s = time.time() - t
+    t = time.time()
+    cpu_sim = simulate(m.circuit, x.cpu()).numpy()
+    same = np.array_equal(card_sim, cpu_sim)
+    print(f"  simulate on 2 images: card {card_s:.1f} s, CPU "
+          f"{time.time() - t:.1f} s, {'equal' if same else 'DIFFERENT'} "
+          f"(features {card_sim.shape}, finite "
+          f"{bool(np.isfinite(card_sim).all())})", flush=True)
+    if not same or card_sim.shape != (2, 512):
+        raise AssertionError("the card's simulate differs from the CPU's")
+
+
 def main():
     with Phase("0 device"):
         if not torch.cuda.is_available():
@@ -1854,6 +2093,11 @@ def main():
         sharded_launches = phase_sharded(s, dev, image_s)
     with Phase("10 strip table"):
         table_launches = phase_strip_table(s.module, dev, record)
+    with Phase("11 larger lattices, ResNet-18"):
+        large_errs = phase_large_kernels(dev, record)
+        large_launches = phase_large_bootstraps(dev)
+        phase_imagenet_row(dev)
+    errs = {k: max(v, large_errs[k]) for k, v in errs.items()}
 
     def timing(name, lat):
         ms, plain, lib, M, drop, cross, *steps = record[name][lat]
@@ -1874,7 +2118,8 @@ def main():
                    "two ranks on one card, sharded chunks":
                        sharded_launches[name],
                    "strip table: build and table-fed chunk":
-                       table_launches[name]}
+                       table_launches[name],
+                   "presets 7 and 8 bootstrap chunks": large_launches[name]}
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": replaces, "launches": sum(by_path.values()),
                  "launches_by_path": by_path,

@@ -296,13 +296,24 @@ def bucket_pairs(L: int, drop: int, cross: int) -> dict:
     return out
 
 
+def toeplitz_t_from_strips(strips: torch.Tensor) -> torch.Tensor:
+    """(C, 128, 2N-128) K-major strips -> (N, C*N): the transposed (N, N)
+    negacyclic Toeplitz matrix of each strip, side by side, contiguous.
+    Rows [128 x0, 128 (x0+1)) of matrix c are
+    strips[c, :, N - 128(x0+1) : 2N - 128(x0+1)]: one strided view of
+    every window, reversed in x0 by one copy."""
+    strips = strips.contiguous()
+    C, _, W = strips.shape
+    N = (W + 128) // 2
+    windows = strips.as_strided((N // 128, 128, C, N), (128, W, 128 * W, 1),
+                                strips.storage_offset())
+    return windows.flip(0).reshape(N, C * N)
+
+
 def toeplitz_from_strip(strip: torch.Tensor) -> torch.Tensor:
     """(128, 2N-128) K-major strip -> (N, N) negacyclic Toeplitz matrix
-    T[k, x] = dbl[(x - k) mod 2N]: columns [128 x0, 128 (x0+1)) are
-    strip[:, N - 128(x0+1) : 2N - 128(x0+1)] transposed."""
-    N = (strip.shape[-1] + 128) // 2
-    return torch.cat([strip[:, N - 128 * (x0 + 1):2 * N - 128 * (x0 + 1)]
-                      for x0 in range(N // 128)], dim=0).t()
+    T[k, x] = dbl[(x - k) mod 2N] (a column-major view)."""
+    return toeplitz_t_from_strips(strip[None]).t()
 
 
 def fused_external_plain(dB0: torch.Tensor, dB1: torch.Tensor,
@@ -325,9 +336,11 @@ def fused_external_plain(dB0: torch.Tensor, dB1: torch.Tensor,
         for s, pairs in sorted(bucket_pairs(L, drop, cross).items()):
             a = torch.cat([dB[u][r] for u, vi in pairs for r in range(rows)],
                           dim=1)
-            b = torch.cat([toeplitz_from_strip(bigd[j, vi * rows + r])
-                           for u, vi in pairs for r in range(rows)], dim=0)
-            out[j] += int8_matmul(a, b).to(I64) << (8 * s)
+            # the Toeplitz operand built column-major, the layout the
+            # card's int8 GEMM runs fastest on (fhe/intmm.py)
+            combos = [vi * rows + r for u, vi in pairs for r in range(rows)]
+            bt = toeplitz_t_from_strips(bigd[j, combos])
+            out[j] += int8_matmul(a, bt.t()).to(I64) << (8 * s)
     return out
 
 

@@ -1,13 +1,16 @@
 """The CUDA kernels (K1 rotate_decompose in both layouts, K2
 build_bigd_strips, K3 fused_external, K4 combine_accumulate, K5
-rotate_diff) against their plain PyTorch versions on the card, and the
-engines against each other, bit for bit; the clear QAT model's classes on
-the card against the CPU's; the trainer's step and augmented ingest on
-the card against the CPU's; the batched transforms on the card against
+rotate_diff) against their plain PyTorch versions on the card, at the
+flagship's lattices and at the main lattices of presets 7 and 8 (N=4096,
+N=8192; K3 also at its int32 bound), and the engines against each
+other, bit for bit, preset-7 and -8 bootstraps included; the clear QAT
+model's classes on the card against the CPU's; the trainer's step and
+augmented ingest on the card against the CPU's; the batched transforms on the card against
 the CPU's, and the native host codec against the card's ingest; the
 sharded paths on one card: the encrypted forward over a 2-entry mesh and
-the tile-sharded ingest.  Every test here needs an NVIDIA GPU and skips
-on the CPU.
+the tile-sharded ingest.  Every test here but the last (the bench
+tool's knobs against ``bench.py``'s) needs an NVIDIA GPU and skips on
+the CPU.
 
 This file imports no JAX and nothing of the JAX package, so it also runs
 on a machine without them:
@@ -28,6 +31,7 @@ from dct_cryptonets_tpu_torch.fhe import keys as KEYS
 from dct_cryptonets_tpu_torch.fhe import kernels as K
 from dct_cryptonets_tpu_torch.fhe import pbs as P
 from dct_cryptonets_tpu_torch.fhe import torus as T
+from dct_cryptonets_tpu_torch.fhe.params import _PRESETS as PRESETS
 from dct_cryptonets_tpu_torch.fhe.params import (TEST_PARAMS, TEST_PARAMS_K2,
                                                  ExactRoundingConfig)
 
@@ -173,6 +177,88 @@ def test_bigd_strips_match_plain(dev, N, G, k_major):
                         dtype=torch.int8)
     assert torch.equal(K.build_bigd_strips(dbl, k_major),
                        K.build_bigd_strips_plain(dbl, k_major))
+
+
+# the larger main lattices, preset 7 (N=4096) and preset 8 (N=8192), k=1:
+# every kernel against its plain version at M across K3's 64- and 128-row
+# tile edges and the production batches, at the knobs the audit picks on
+# the flagship and the single-scale drop 7
+@pytest.mark.parametrize("drop,cross", [(0, 0), (2, 1), (3, 0), (4, 1),
+                                        (7, 0)])
+@pytest.mark.parametrize("M", [64, 129, 2048, 4097])
+@pytest.mark.parametrize("N", [4096, 8192])
+def test_large_lattice_kernels_match_plain(dev, N, M, drop, cross):
+    acc, amt, bsk = inputs(N + M + drop, 1, M, N, 2, dev)
+    got = K.rotate_decompose(acc, amt, 15, 2)
+    want = K.rotate_decompose_plain(acc, amt, 15, 2)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    dbl = P._bigd_rows(bsk, 1, 2, N, drop)
+    for k_major in (False, True):
+        assert torch.equal(K.build_bigd_strips(dbl, k_major),
+                           K.build_bigd_strips_plain(dbl, k_major))
+    strips = K.build_bigd_strips(dbl, k_major=True)
+    dB0, dB1 = want
+    assert torch.equal(K.fused_external(dB0, dB1, strips, acc, drop, cross),
+                       K.fused_external_plain(dB0, dB1, strips, acc, drop,
+                                              cross))
+    del got, want, dB0, dB1, strips
+    sm = acc.transpose(0, 1).contiguous()
+    del acc
+    assert_k1_equal(sm, amt, 15, 2, False)
+    assert torch.equal(K.rotate_diff(sm, amt), K.rotate_diff_plain(sm, amt))
+    g = torch.Generator(device=dev).manual_seed(M + drop)
+    o0, o1 = (torch.randint(-2 ** 31, 2 ** 31 - 1, (M, 2 * (8 - drop), N),
+                            generator=g, device=dev, dtype=torch.int32)
+              for _ in range(2))
+    assert torch.equal(K.combine_accumulate(o0, o1, sm, drop, cross),
+                       K.combine_accumulate_plain(o0, o1, sm, drop, cross))
+
+
+# K3's int32 accumulator at its bound: every digit byte and key byte
+# -128, so each of the 2 * rows * N terms of a byte scale is +2^14 and a
+# scale's bucket reaches 2 * 4 * 8192 * 2^14 = 2^30 at N=8192 (with the
+# carry of the scale below, under 2^31)
+@pytest.mark.parametrize("N", [4096, 8192])
+def test_fused_external_at_its_int32_bound(dev, N):
+    M, rows = 129, 4
+    acc = torch.zeros((2, M, N), dtype=torch.int64, device=dev)
+    d = torch.full((rows, M, N), -128, dtype=torch.int8, device=dev)
+    dbl = torch.full((2, 8 * rows, 2 * N), -128, dtype=torch.int8,
+                     device=dev)
+    strips = K.build_bigd_strips(dbl, k_major=True)
+    got = K.fused_external(d, d, strips, acc, 0)
+    assert torch.equal(got, K.fused_external_plain(d, d, strips, acc, 0))
+    # scale 0 has one pair, scales 1 to 7 two; the pair of scale 8 wraps
+    bucket = 2 * rows * N * 2 ** 14
+    want = bucket // 2 + sum(bucket << (8 * s) for s in range(1, 8))
+    assert torch.all(got == (want + 2 ** 63) % 2 ** 64 - 2 ** 63)
+
+
+# one bootstrap chunk at each larger preset on random key bytes: the
+# keyswitch at base 2^3 x 8 from kN = 4096 / 8192, test polynomials of
+# 2^7 / 2^8 windows, n = 970 / 1024 CMUX steps
+@pytest.mark.parametrize("preset", [7, 8])
+def test_bootstrap_at_large_presets_kernel_equals_plain(dev, preset):
+    from chip_smoke import random_server_keys
+
+    par = PRESETS[preset]
+    dsk = random_server_keys(par, dev, preset)
+    g = torch.Generator(device=dev).manual_seed(preset + 1)
+    M, kN = 64, par.glwe_dim * par.poly_size
+    ct = torch.randint(-2 ** 63, 2 ** 63 - 1, (M, kN + 1), generator=g,
+                       device=dev, dtype=torch.int64)
+    tables = torch.randint(-2 ** 11, 2 ** 11, (M, 2 ** par.message_bits),
+                           generator=g, device=dev, dtype=torch.int32)
+    K.reset_launch_counts()
+    got = P.bootstrap(ct, tables, dsk, par, par.delta_log2)
+    n = par.lwe_dim
+    assert K.launch_counts() == {"rotate_decompose": n,
+                                 "build_bigd_strips": n, "fused_external": n,
+                                 "combine_accumulate": 0, "rotate_diff": 0}
+    want = P.bootstrap(ct, tables, dsk, par, par.delta_log2, engine="plain")
+    assert got.shape == (M, kN + 1)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("par", [TEST_PARAMS, TEST_PARAMS_K2],
@@ -640,3 +726,21 @@ def test_dct_ingest_sharded_on_the_card(card, fs, S, ch, size):
     want = dct_ingest_sharded(imgs, cfg, data_mesh(4, devices="cpu"))
     ulp = np.spacing(np.float32(want.abs().max()))
     np.testing.assert_allclose(got.cpu(), want, rtol=0, atol=4 * ulp)
+
+
+def test_bench_model_knobs_match_bench_py():
+    """``tools/bench_model.py`` reads ``bench.py``'s four environment knobs
+    with its defaults on an accelerator (bench.py imports no JAX at its
+    top, so it loads here)."""
+    import bench
+    from dct_cryptonets_tpu_torch.tools import bench_model as BM
+
+    assert BM.knobs({}) == {"M": 2048, "mode": "exact",
+                            "model": "ResNet20qat", "preset": None}
+    assert BM.knobs({"BENCH_M": "64", "BENCH_MODE": "approximate",
+                     "BENCH_MODEL": "ResNet18qat", "BENCH_PRESET": "7"}) == {
+        "M": 64, "mode": "approximate", "model": "ResNet18qat", "preset": 7}
+    assert BM.REF_LATENCY == bench.REF_LATENCY
+    for bad in ({"BENCH_MODEL": "ResNet20"}, {"BENCH_MODE": "exactly"}):
+        with pytest.raises(ValueError):
+            BM.knobs(bad)
